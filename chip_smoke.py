@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--phases kernels,storm,served-identity,served,
                                     mesh,mesh-served-identity,mesh-served]
+                          [--package-root DIR]
 
 Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
 
@@ -9,6 +10,16 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            placement path's shapes: rows, n_feasible and usage must be
            identical and scores within 4e-6 absolute; kernel, plain and
            (where one PyTorch call computes the same function) library times.
+           K2, K3 and K4a at the served storm's window (T = 1, 4,096 steps,
+           a reset every 64, 50 valid of 64, a 4,096-candidate table; K4a's
+           microseconds per step), at the per-eval storm's P = 64 and at
+           varied and deep windows; K4a's edge cases (exact ties, distinct
+           on and off, all-infeasible steps, key and demand changes mid-run,
+           winners through padding runs, tables above the shared-memory
+           budget or no multiple of the segment, 3 and 7 resource
+           dimensions, 40 keys) and the select's at K2's and K8's shapes
+           (exact ties, k = 1, k = n, several keys, a starved key), each bit
+           for bit against the plain version; torch.topk as K2's yardstick.
   storm    the slice at full width, through the entry points a user calls:
            a 10,000-node fleet in 64 computed classes (BASELINE config 3,
            16,384 table rows), 100 service evals of 50 placements, one batch
@@ -51,7 +62,10 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            chained windows (1 cold, 5 warm: the ring holds 16 windows)
            through `place_batch_keyed` on the mesh and on one device, bit
            for bit on `packed` and the materialized usage, with per-window
-           times, the exchanged bytes and the launches per window.
+           times, the exchanged bytes and the launches per window; K2 on
+           the whole 1,048,576-row table against its plain version and
+           torch.topk; torch.topk and torch.sort as K8's and K9's
+           yardsticks.
   mesh-served-identity
            the served path's window on the mesh at full width: the dev
            server of served-identity with its table on S = 8 logical
@@ -70,6 +84,10 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            same (job, alloc name -> node) set and the same usage; every
            window on the mesh, at least one warm, no fallback, and K6-K10
            launched. Untraced evals/s, then a traced storm's idle share.
+
+--package-root DIR drives the nomad_tpu_torch package found in DIR (an
+unpacked earlier commit, say) with this script's phases, so two commits'
+kernels meet the same shapes in one run.
 
 Prints the card's name and power limit, one `kernels` JSON line, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -184,9 +202,10 @@ def bound(nbytes: float, ops: float):
 # ------------------------------------------------------------- kernels
 
 
-def window_inputs(torch, dev, rng, n, t, uniform=False):
+def window_inputs(torch, dev, rng, n, t, uniform=False, zero_noise=False):
     """Node-side inputs of one window. uniform=True is the mock fleet the
-    storm places on (identical nodes, reserved usage, noise-only ties)."""
+    storm places on (identical nodes, reserved usage, noise-only ties);
+    zero_noise=True leaves exact ties, which the row order decides."""
     if uniform:
         capacity = np.tile(np.array([4000, 8192, 102400, 150, 1000],
                                     np.float32), (n, 1))
@@ -205,7 +224,8 @@ def window_inputs(torch, dev, rng, n, t, uniform=False):
         job_counts = rng.integers(0, 3, n).astype(np.int32)
         key_demands = rng.uniform(10, 100, (t, 5)).astype(np.float32)
         banned0 = rng.random(n) < 0.05
-    noise = (rng.random(n) * 1e-3).astype(np.float32)
+    noise = (np.zeros(n, np.float32) if zero_noise
+             else (rng.random(n) * 1e-3).astype(np.float32))
     arrs = dict(capacity=capacity, score_cap=score_cap, usage=usage,
                 tg_masks=tg_masks, job_counts0=job_counts,
                 key_demands=key_demands, noise=noise, banned0=banned0)
@@ -222,6 +242,72 @@ def step_inputs(torch, dev, rng, t, p, n_valid, reset_every=0):
     return {k: torch.tensor(v, device=dev)
             for k, v in (("tg_ids", tg_ids), ("valid", valid),
                          ("reset", reset))}
+
+
+def served_steps(torch, dev, evals, per_eval=WINDOW, n_valid=PER_EVAL,
+                 n_keys=1, run=16, rng=None):
+    """dispatch_multi's steps for a window of `evals` storm evals: a reset
+    at each eval's first step and n_valid valid steps of its per_eval. With
+    n_keys > 1 the key changes every `run` steps (padding runs inside runs
+    of one key)."""
+    p = evals * per_eval
+    valid = np.zeros(p, bool)
+    reset = np.zeros(p, bool)
+    for e in range(evals):
+        valid[e * per_eval:e * per_eval + n_valid] = True
+        reset[e * per_eval] = True
+    tg_ids = (np.repeat(rng.integers(0, n_keys, -(-p // run)), run)[:p]
+              if n_keys > 1 else np.zeros(p))
+    return {k: torch.tensor(v, device=dev)
+            for k, v in (("tg_ids", tg_ids.astype(np.int32)),
+                         ("valid", valid), ("reset", reset))}
+
+
+def resize_dims(torch, w, r, rng):
+    """The window's inputs with r resource dimensions instead of 5: the first
+    r columns, or extra random ones beyond 5 (the kernels' generic path)."""
+    out = dict(w)
+    for name in ("capacity", "usage", "key_demands"):
+        x = w[name]
+        if r <= x.shape[1]:
+            out[name] = x[:, :r].contiguous()
+        else:
+            lo, hi = {"capacity": (1000, 4000), "usage": (0, 500),
+                      "key_demands": (10, 100)}[name]
+            extra = rng.uniform(lo, hi, (x.shape[0], r - x.shape[1]))
+            out[name] = torch.cat([x, torch.tensor(
+                extra.astype(np.float32), device=x.device)], dim=1)
+    return out
+
+
+def run_steps(torch, dev, rng, t, p, run=12, frac=1.0):
+    """Runs of one key: the key changes mid-run, without a reset after the
+    first step."""
+    tg_ids = np.repeat(rng.integers(0, t, -(-p // run)), run)[:p]
+    valid = np.zeros(p, bool)
+    valid[:int(p * frac)] = True
+    reset = np.zeros(p, bool)
+    reset[0] = True
+    return {k: torch.tensor(v, device=dev)
+            for k, v in (("tg_ids", tg_ids.astype(np.int32)),
+                         ("valid", valid), ("reset", reset))}
+
+
+def chain_triggers(tg_ids, valid, reset, demands=None):
+    """Steps on which K4a rescores its whole table (csrc/chain.cu): the
+    first, a reset, a change of key, and a change of validity (replay) or
+    of any demand bit (scan, demands given)."""
+    t, v = tg_ids.cpu().numpy(), valid.cpu().numpy()
+    rs = reset.cpu().numpy() if reset is not None else np.zeros(len(t), bool)
+    trig = rs.copy()
+    trig[0] = True
+    trig[1:] |= t[1:] != t[:-1]
+    if demands is None:
+        trig[1:] |= v[1:] != v[:-1]
+    else:
+        bits = demands.cpu().numpy().view(np.uint32)
+        trig[1:] |= (bits[1:] != bits[:-1]).any(axis=1)
+    return int(trig.sum())
 
 
 def nbytes(*tensors) -> int:
@@ -251,10 +337,10 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
     rng = np.random.default_rng(20261017)
     table = {}   # kernel name -> main-path measurement
 
-    def keyed_case(label, t, p, n_valid, uniform, reps, plain_reps,
+    def keyed_case(label, t, s, n_valid, uniform, reps, plain_reps,
                    main=False):
+        p = s["tg_ids"].shape[0]
         w = window_inputs(torch, dev, rng, n, t, uniform)
-        s = step_inputs(torch, dev, rng, t, p, n_valid)
         k_cand = K.keyed_cand_count(n_valid)
         args = (w["capacity"], w["score_cap"], w["usage"], w["tg_masks"],
                 w["job_counts0"], w["key_demands"], w["noise"], 10.0, False,
@@ -297,11 +383,14 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
                 time_ms(torch, lambda: K.placement_chain_plain(
                     *chain_args, **chain_kw), plain_reps)),
         }
+        n_trig = chain_triggers(s["tg_ids"], s["valid"], s["reset"])
         print(f"phase keyed {label}: T={t} N={n} P={p} n_valid={n_valid} "
               f"K={k_cand} table={r_k.numel()} placed={placed}: rows, nf0, "
               f"top-K, candidates, n_feasible and usage identical; max score "
               f"diff K2={err2} K4a={err4}; kernel/plain ms "
-              + ", ".join(f"{k}={a:.4f}/{b:.4f}" for k, (a, b) in ms.items()),
+              + ", ".join(f"{k}={a:.4f}/{b:.4f}" for k, (a, b) in ms.items())
+              + f"; K4a {1e3 * ms['placement_chain'][0] / p:.4f} us per step "
+              f"({n_trig} full rescores, {p - n_trig} incremental steps)",
               flush=True)
         if main:
             kc = c_k.shape[1]
@@ -312,27 +401,47 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
                         w["noise"], w["banned0"], m_k, nf_k, c_k)
             b3 = nbytes(c_k, r_k, keep_k)
             # The replay needs each candidate's row data (not the table),
-            # the per-step inputs, and writes packed and the usage copy.
+            # the per-step inputs, and writes packed and the usage copy; its
+            # work is one table pass per trigger and one entry per other
+            # step.
             row_bytes = (2 * r + 2 + 1 + 1 + t + t) * 4
             b4 = (c * row_bytes + nbytes(s["tg_ids"], s["valid"], s["reset"],
                                          w["key_demands"], nf_k, got[0])
                   + 2 * nbytes(w["usage"]))
-            ops4 = p * c * (3 * r + 20)
-            for name, nb, ops, err in (
-                    ("score_topk", b2, t * n * (3 * r + 20), err2),
-                    ("merge_candidates", b3, c * np.log2(max(c, 2)), 0.0),
-                    ("placement_chain", b4, ops4, err4)):
+            ops4 = (n_trig * c + (p - n_trig)) * (3 * r + 20)
+            # Library yardstick for K2's selection: torch.topk over the
+            # masked scores (its tie order is not the contract: time only).
+            topk_ms = time_ms(torch, lambda: torch.topk(m_k, kc, dim=1,
+                                                        sorted=True), reps)
+            for name, nb, ops, err, lib in (
+                    ("score_topk", b2, t * n * (3 * r + 20), err2, topk_ms),
+                    ("merge_candidates", b3, c * np.log2(max(c, 2)), 0.0,
+                     None),
+                    ("placement_chain", b4, ops4, err4, None)):
                 bms, by = bound(nb, ops)
                 table[name] = dict(max_abs_err=err, ms=ms[name][0],
                                    plain_ms=ms[name][1], bound_ms=bms,
-                                   bound_by=by, library_ms=None)
+                                   bound_by=by, library_ms=lib)
+            print(f"phase keyed {label}: bounds ms K2 "
+                  f"{table['score_topk']['bound_ms']:.6f}, K3 "
+                  f"{table['merge_candidates']['bound_ms']:.6f}, K4a "
+                  f"{table['placement_chain']['bound_ms']:.6f} "
+                  f"({table['placement_chain']['bound_by']}); torch.topk "
+                  f"(k={kc}) {topk_ms:.4f} ms", flush=True)
 
-    # The storm's shape (one task group, 50 placements padded to 64) on the
+    # The served storm's window (64 evals of one task group, 50 placements
+    # padded to 64: K = 4,096, T = 1, 4,096 steps, a reset every 64) on the
     # storm's uniform fleet: these are the kernels table's numbers.
-    keyed_case("main path (uniform fleet)", 1, 64, 50, True, 50, 3, main=True)
-    keyed_case("varied fleet", 3, 64, 64, False, 50, 3)
-    keyed_case("varied fleet, deep window", 3, deep, deep - deep // 32,
-               False, 3, 1)
+    keyed_case("served window (uniform fleet)", 1,
+               served_steps(torch, dev, WINDOW), WINDOW * PER_EVAL, True, 5,
+               1, main=True)
+    keyed_case("per-eval storm (uniform fleet)", 1,
+               step_inputs(torch, dev, rng, 1, 64, 50), 50, True, 50, 3)
+    keyed_case("varied fleet", 3, step_inputs(torch, dev, rng, 3, 64, 64),
+               64, False, 50, 3)
+    keyed_case("varied fleet, deep window", 3,
+               step_inputs(torch, dev, rng, 3, deep, deep - deep // 32),
+               deep - deep // 32, False, 3, 1)
 
     # K3's per-key trim, which a single card's window never needs (it fires
     # when shards contribute more candidates than T * K): candidates of 8
@@ -381,6 +490,9 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
         print(f"phase K4a {label}: T={t} N={n} P={p}: identical to plain "
               f"(max score diff {err}) and to the keyed route; kernel/plain "
               f"ms {k_ms:.4f}/{p_ms:.4f}", flush=True)
+
+    chain_edge_cases(torch, dev, K, rng)
+    select_edge_cases(torch, dev, K, rng)
 
     # K4b at every refresh chunk size; library: index_copy_ on each table.
     for size in NT._REFRESH_CHUNKS:
@@ -444,6 +556,168 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
                 max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                 bound_by=by, library_ms=None)
     return table
+
+
+def _identical(torch, got, ref, what):
+    """Every output equal bit for bit (floats compared as their bits)."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"{what}: output {i} differs from the plain version")
+
+
+def chain_edge_cases(torch, dev, K, rng):
+    """K4a's redesign at its edges, each against the plain version bit for
+    bit (replay: packed, usage, each step's argmax index, chained usage;
+    scan: packed, usage): exact ties, distinct on and off, all-infeasible
+    steps, a key or demand change mid-run, padding runs, a table above the
+    shared-memory budget, tables that are no multiple of the 128-entry
+    segment, resource dimensions other than 5 and more keys than the
+    eligibility bits hold."""
+    cases = []
+    n = 16384
+    # (label, rows, T, fleet kwargs, steps, distinct, mode, starve key 0)
+    for distinct in (False, True):
+        cases.append((f"exact ties (uniform fleet, no noise), distinct "
+                      f"{distinct}", n, 1, dict(uniform=True, zero_noise=True),
+                      served_steps(torch, dev, 8), distinct, "replay", False))
+    cases += [
+        ("distinct on, key changes mid-run", n, 3, {},
+         run_steps(torch, dev, rng, 3, 512, frac=0.9), True, "replay", False),
+        ("distinct off, key changes mid-run, scan", n, 3, {},
+         run_steps(torch, dev, rng, 3, 256), False, "scan", False),
+        ("all-infeasible steps (key 0 eligible nowhere)", n, 2, {},
+         run_steps(torch, dev, rng, 2, 384, frac=0.9), False, "replay",
+         True),
+        ("all-infeasible steps, scan", n, 2, {},
+         run_steps(torch, dev, rng, 2, 128), True, "scan", True),
+        ("winners through padding runs (2 keys)", n, 2, {},
+         served_steps(torch, dev, 8, n_keys=2, rng=rng), False, "replay",
+         False),
+        ("table above the shared-memory budget (replay, 8 keys)", n, 8, {},
+         run_steps(torch, dev, rng, 8, 4096, run=256, frac=0.9), False,
+         "replay", False),
+        ("table above the shared-memory budget, no segment multiple (scan)",
+         65536 + 77, 2, {}, run_steps(torch, dev, rng, 2, 96), True, "scan",
+         False),
+        ("table no segment multiple (scan)", 1000, 2, {},
+         run_steps(torch, dev, rng, 2, 256), True, "scan", False),
+    ]
+    # The generic paths: resource dimensions other than the node table's
+    # 5, and more keys than eligibility bits.
+    for r_dims in (3, 7):
+        cases.append((f"{r_dims} resource dimensions", n, 2, dict(r=r_dims),
+                      served_steps(torch, dev, 8, n_keys=2, rng=rng), True,
+                      "replay", False))
+        cases.append((f"{r_dims} resource dimensions, scan", 4096, 2,
+                      dict(r=r_dims), run_steps(torch, dev, rng, 2, 128),
+                      False, "scan", False))
+    cases.append(("40 keys (beyond the eligibility bits)", n, 40, {},
+                  run_steps(torch, dev, rng, 40, 512, run=8, frac=0.9),
+                  False, "replay", False))
+    for label, rows, t, fleet, st, distinct, mode, starve in cases:
+        fleet = dict(fleet)
+        r_dims = fleet.pop("r", 5)
+        w = window_inputs(torch, dev, rng, rows, t, **fleet)
+        if r_dims != 5:
+            w = resize_dims(torch, w, r_dims, rng)
+        if starve:
+            w["tg_masks"][0] = False
+        p = st["tg_ids"].shape[0]
+        if mode == "replay":
+            n_valid = int(st["valid"].sum())
+            k_cand = K.keyed_cand_count(n_valid)
+            m0, nf0, cand = K.score_topk(
+                w["capacity"], w["score_cap"], w["usage"], w["tg_masks"],
+                w["job_counts0"], w["key_demands"], w["noise"], 10.0,
+                distinct, w["banned0"], k_cand)
+            sel, keep = K.merge_candidates(cand, m0, k_cand)
+            args = (w["capacity"], w["score_cap"], w["usage"], w["tg_masks"],
+                    w["job_counts0"], w["key_demands"], st["tg_ids"],
+                    st["valid"], w["noise"], 10.0, distinct, w["banned0"])
+            kw = dict(reset=st["reset"], rows=sel, keep=keep, masked0=m0,
+                      nf0=nf0, winners=True)
+            table = sel.numel()
+            n_trig = chain_triggers(st["tg_ids"], st["valid"], st["reset"])
+        else:
+            demands = (w["key_demands"][st["tg_ids"].long()]
+                       * st["valid"][:, None].float()).contiguous()
+            args = (w["capacity"], w["score_cap"], w["usage"], w["tg_masks"],
+                    w["job_counts0"], demands, st["tg_ids"], st["valid"],
+                    w["noise"], 10.0, distinct, w["banned0"])
+            kw = dict(reset=st["reset"])
+            table = rows
+            n_trig = chain_triggers(st["tg_ids"], st["valid"], st["reset"],
+                                    demands)
+        got = K.placement_chain(*args, **kw)
+        ref = K.placement_chain_plain(*args, **kw)
+        _identical(torch, got, ref, f"K4a {label}")
+        placed = int((got[0][:, 0] >= 0).sum())
+        print(f"phase K4a edge {label}: {mode}, table {table}, T={t}, "
+              f"P={p}, {n_trig} full rescores, {placed} placed: identical "
+              f"to plain bit for bit", flush=True)
+    # A demand change under one key (scan mode reads a demand per step).
+    w = window_inputs(torch, dev, rng, n, 1)
+    st = run_steps(torch, dev, rng, 1, 192)
+    demands = w["key_demands"][st["tg_ids"].long()].contiguous()
+    demands[64:128] *= 1.5
+    demands[128:] *= 0.5
+    args = (w["capacity"], w["score_cap"], w["usage"], w["tg_masks"],
+            w["job_counts0"], demands, st["tg_ids"], st["valid"], w["noise"],
+            10.0, False, w["banned0"])
+    _identical(torch, K.placement_chain(*args), K.placement_chain_plain(*args),
+               "K4a demand change mid-run")
+    n_trig = chain_triggers(st["tg_ids"], st["valid"], None, demands)
+    check(n_trig == 3, f"K4a demand change: {n_trig} triggers, want 3")
+    print(f"phase K4a edge demand change mid-run: scan, table {n}, P=192, "
+          f"{n_trig} full rescores: identical to plain bit for bit",
+          flush=True)
+
+
+def select_edge_cases(torch, dev, K, rng):
+    """The radix select at its edges, at K2's and K8's shapes, each against
+    the plain versions' stable sort bit for bit: exact and noise-only ties,
+    distinct on and off, k = 1 and k = n, several keys, a key with fewer
+    feasible rows than k."""
+    n = 16384
+    for label, rows, t, k, fleet, distinct, starve in (
+            ("exact ties", n, 1, 4096, dict(uniform=True, zero_noise=True),
+             False, False),
+            ("k = 1, 3 keys, distinct on", n, 3, 1, {}, True, False),
+            ("3 keys, key 0 starved", n, 3, 64, {}, False, True),
+            ("k = n, 2 keys", 4096, 2, 4096, {}, True, False),
+            ("k = n, exact ties", 4096, 1, 4096,
+             dict(uniform=True, zero_noise=True), False, False)):
+        w = window_inputs(torch, dev, rng, rows, t, **fleet)
+        if starve:
+            w["tg_masks"][0] = False
+            w["tg_masks"][0, [3, rows // 2]] = True
+        args = (w["capacity"], w["score_cap"], w["usage"], w["tg_masks"],
+                w["job_counts0"], w["key_demands"], w["noise"], 10.0,
+                distinct, w["banned0"], k)
+        _identical(torch, K.score_topk(*args), K.score_topk_plain(*args),
+                   f"K2 select {label}")
+        print(f"phase K2 select edge {label}: N={rows} T={t} k={k}: masked0 "
+              f"(bits), nf0 and the ordered top-k identical to plain",
+              flush=True)
+    n_loc = MESH_ROWS // MESH_SHARDS
+    for label, rows, t, b_buf, fleet, distinct in (
+            ("exact ties", n_loc, 1, 2048,
+             dict(uniform=True, zero_noise=True), False),
+            ("noise-only ties, distinct on", n_loc, 1, 2048,
+             dict(uniform=True), True),
+            ("B = 1, 3 keys", n_loc, 3, 1, {}, True),
+            ("B = n (8,192-row shard), 2 keys", 8192, 2, 8192, {}, False)):
+        w = window_inputs(torch, dev, rng, rows, t, **fleet)
+        tab = K.mesh_pack(w["capacity"], w["score_cap"], w["job_counts0"],
+                          w["noise"], w["banned0"])
+        args = (tab, w["usage"], w["tg_masks"], w["key_demands"], 10.0,
+                distinct, 5 * rows, b_buf)
+        _identical(torch, K.cold_packet(*args), K.cold_packet_plain(*args),
+                   f"K8 select {label}")
+        print(f"phase K8 select edge {label}: n_loc={rows} T={t} B={b_buf}: "
+              f"packet, nf0 and top-B values identical to plain", flush=True)
 
 
 def compact_inputs(torch, dev, rng, e, p):
@@ -1079,13 +1353,19 @@ def served_phase(torch, gpu: str, device="cuda"):
         st = res["stats"]
         # The worker reroutes an eval whose window launch or fast dispatch
         # raised to the per-eval path and carries on: every eval must have
-        # gone through a fused window instead.
+        # gone through a fused window instead, each window one chain
+        # launch. (A storm may open with a lone-eval window: the worker
+        # lingers FILL_TIMEOUT = 2 ms for a second eval, and a window of
+        # one is dispatched alone, not fused; `multi` counts fused ones.)
         check(st["fast"] == N_SERVED_EVALS and st["slow"] == 0
-              and st["fallback"] == 0 and st["multi"] == st["windows"],
+              and st["fallback"] == 0
+              and res["launches"]["placement_chain"] == st["windows"]
+              and st["multi"] >= st["windows"] - 1,
               f"served {label}: not every eval went through a fused window: "
               f"fast {st['fast']}, slow {st['slow']}, fallback "
               f"{st['fallback']}, multi {st['multi']}, windows "
-              f"{st['windows']}")
+              f"{st['windows']}, chain launches "
+              f"{res['launches']['placement_chain']}")
         for k in SERVED_KERNELS:
             check(res["launches"][k] > 0,
                   f"served {label}: kernel {k} never launched")
@@ -1236,21 +1516,33 @@ def mesh_phase(torch, gpu: str, dev):
             K.cold_packet(*args), K.cold_packet_plain(*args))),
               f"mesh cold_packet shard {s}: kernel and plain differ")
     w = 6 + 2 * r + t
+    # Library yardstick for K8's selection: torch.topk of the shard's masked
+    # scores (its tie order is not the contract: time only).
+    masked_s0 = K.score_topk_plain(
+        d["capacity"][:n_loc], d["score_cap"][:n_loc], d["usage"][:n_loc],
+        mask_s[0].contiguous(), d["job_counts"][:n_loc], d["key_demands"],
+        d["noise"][:n_loc], 10.0, False, d["banned0"][:n_loc], b_buf)[0]
     stage("cold_packet", K.cold_packet, K.cold_packet_plain,
           (packed_table[:n_loc], d["usage"][:n_loc], mask_s[0],
            d["key_demands"], 10.0, False, 0, b_buf), 20, 5,
           n_loc * ((r + 5) * 4 + r * 4 + t) + t * b_buf * (w + 1) * 4 + t * 4,
-          t * n_loc * (3 * r + 20))
+          t * n_loc * (3 * r + 20),
+          library=lambda: torch.topk(masked_s0, b_buf, dim=1, sorted=True))
     # K9 on the cold window's exchange.
     pkts, _, nfs, vals = prog.a_cold(packed_table, d["usage"], d["tg_masks"],
                                      d["key_demands"], 10.0, False,
                                      prog.ring_zero(r))
     ex = prog.exchange(pkts, nfs, vals)
     c = ex[0].shape[0]
+    # Library yardstick for K9's sort: torch.sort of its packed (row,
+    # position) keys.
+    pool_keys = ((ex[0][:, 0].to(torch.int64) << 32)
+                 | torch.arange(c, device=dev))
     pool = stage("pool_build", K.pool_build, K.pool_build_plain,
                  (*ex, d["key_demands"]), 20, 5,
                  nbytes(*ex) + c * (r * 4 + 1 + 4 + r * 4 + 8 + 4 + 1 + 4
-                                    + t), c * np.log2(c) ** 2 / 2)
+                                    + t), c * np.log2(c) ** 2 / 2,
+                 library=lambda: torch.sort(pool_keys))
     pool = K.PoolState(*pool)
     # K10 on the last window's warm step: its K2, K3 and K4a outputs.
     prev = chain[-2].usage_after
@@ -1295,6 +1587,26 @@ def mesh_phase(torch, gpu: str, dev):
     placed = [int((x.packed[:, 0] >= 0).sum()) for x in chain]
     check(all(x == MESH_VALID for x in placed),
           f"mesh: placed {placed} per window, want {MESH_VALID}")
+
+    # K2 on the single device's whole table (the window's first launch):
+    # kernel, plain and torch.topk of its masked scores.
+    k2_args = (d["capacity"], d["score_cap"], d["usage"], d["tg_masks"],
+               d["job_counts"], d["key_demands"], d["noise"], 10.0, False,
+               d["banned0"], k_cand)
+    k2_got = K.score_topk(*k2_args)
+    _identical(torch, k2_got, K.score_topk_plain(*k2_args),
+               f"K2 at {n} rows")
+    k2_ms = time_ms(torch, lambda: K.score_topk(*k2_args), 20)
+    k2_plain = time_ms(torch, lambda: K.score_topk_plain(*k2_args), 3)
+    k2_topk = time_ms(torch, lambda: torch.topk(k2_got[0], k_cand, dim=1,
+                                                sorted=True), 20)
+    k2_bound, k2_by = bound(nbytes(*[a for a in k2_args
+                                     if isinstance(a, torch.Tensor)])
+                            + nbytes(*k2_got), t * n * (3 * r + 20))
+    print(f"phase mesh K2 at {n} rows, T={t}, k={k_cand}: identical to plain "
+          f"bit for bit; kernel/plain ms {k2_ms:.4f}/{k2_plain:.4f}, "
+          f"torch.topk {k2_topk:.4f}; bound {k2_bound:.6f} ms ({k2_by})",
+          flush=True)
 
     def timed_chain(m):
         times = []
@@ -1508,8 +1820,14 @@ def main() -> int:
                     default="kernels,storm,served-identity,served,mesh,"
                             "mesh-served-identity,mesh-served",
                     help="comma list of phases to run (default: all)")
+    ap.add_argument("--package-root", default=None,
+                    help="drive the nomad_tpu_torch package found in this "
+                         "directory (for example an unpacked earlier "
+                         "commit) instead of this checkout's")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if args.package_root is not None:
+        sys.path.insert(0, os.path.abspath(args.package_root))
 
     import torch
 
@@ -1522,6 +1840,8 @@ def main() -> int:
     dev = torch.device("cuda")
     gpu = gpu_line()
     print(f"gpu: {gpu}", flush=True)
+    print(f"package: {os.path.dirname(os.path.dirname(native.__file__))}",
+          flush=True)
     t0 = time.monotonic()
     native.library()
     print(f"kernels built and loaded in {time.monotonic() - t0:.1f} s "

@@ -4,19 +4,19 @@
 // the masked BestFit-v3 score pass over [T, N] and lax.top_k per key).
 //   k2_score    one thread per (key, row): fit & eligibility & distinct-hosts
 //               mask, K1 score - counts * penalty + noise, -inf where masked.
-//   k2_select   one block per key: nf0 (feasible rows) and an 8-pass radix
-//               select of the K-th smallest (score desc, row asc) u64 key,
-//               then the K rows at or below it, in no particular order.
-//   k2_rank     one thread per selected row: its rank among the key's K
-//               selected keys, so the output is ordered by (score desc, row
-//               asc) exactly as lax.top_k orders it, -inf entries included.
-//   (k2_select and k2_rank live in select.cuh, shared with csrc/mesh.cu.)
+//   launch_select  nf0 (feasible rows) and the K rows of each key with the
+//               smallest (score desc, row asc) u64 keys, in that order, as
+//               lax.top_k orders them, -inf entries included: a radix
+//               select spread over the card (grid-wide 12-bit histogram
+//               passes until the keys in play fit one block, a grid-wide
+//               compaction, a one-block finish that sorts the K keys). Its
+//               state is initialised by k2_score's first block per key.
+//   (launch_select lives in select.cuh, shared with csrc/mesh.cu.)
 // Bound on the card: the score pass reads capacity, usage, score_cap, noise,
 // counts, bans and masks once (bytes); the select re-reads the [T, N] scores
-// eight times from L2. Both are far from the memory roofline at the slice's
-// N = 16384 because they are a few microseconds of launch and latency; the
-// design keeps every pass a plain loop so it stays correct up to the keyed
-// candidate budget (T * K <= 2^17), not fast.
+// from L2 once per grid pass and once to compact. At the slice's N = 16384
+// both are a few microseconds of launch and latency; at 1,048,576 rows the
+// score pass's bytes dominate.
 //
 // K3 replaces nomad_tpu/scheduler/kernels.py:444-506 (candidate packets, sort
 // by global row, first-occurrence dedup, the per-key trim to the global top-K
@@ -49,9 +49,12 @@ __global__ void k2_score(const float* __restrict__ capacity,
                          const float* __restrict__ noise,
                          const uint8_t* __restrict__ banned, float penalty,
                          int distinct, int n, int r_dims,
-                         float* __restrict__ masked0) {
+                         float* __restrict__ masked0,
+                         SelectState* __restrict__ sel_states,
+                         unsigned int* __restrict__ sel_hist, int kc) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
+  if (blockIdx.x == 0) select_init(sel_states, sel_hist, t, n, kc);
   if (row >= n) return;
   const float* cap = capacity + static_cast<int64_t>(row) * r_dims;
   const float* use = usage + static_cast<int64_t>(row) * r_dims;
@@ -140,24 +143,25 @@ __global__ void k3_merge(const int32_t* __restrict__ cand,
 
 extern "C" {
 
+// Bytes of the select's work buffer for n_keys keys (K2's and K8's).
+int64_t nomad_select_work_bytes(int n_keys) { return select_work_bytes(n_keys); }
+
 // K2. masked0 [T, N] f32, nf0 [T] i32, unordered [T, kc] i32 (scratch),
-// cand [T, kc] i32. Returns cudaGetLastError() after the launches.
+// cand [T, kc] i32, work nomad_select_work_bytes(T) bytes (scratch).
+// Returns cudaGetLastError() after the launches.
 int nomad_score_topk(const float* capacity, const float* score_cap,
                      const float* usage, const uint8_t* tg_masks,
                      const int32_t* counts, const float* key_demands,
                      const float* noise, const uint8_t* banned, float penalty,
                      int distinct, int n, int r_dims, int n_keys, int kc,
                      float* masked0, int32_t* nf0, int32_t* unordered,
-                     int32_t* cand, cudaStream_t stream) {
+                     int32_t* cand, void* work, cudaStream_t stream) {
+  const SelectWork sw = select_work(work, n_keys);
   dim3 score_grid((n + kScoreThreads - 1) / kScoreThreads, n_keys);
   k2_score<<<score_grid, kScoreThreads, 0, stream>>>(
       capacity, score_cap, usage, tg_masks, counts, key_demands, noise, banned,
-      penalty, distinct, n, r_dims, masked0);
-  k2_select<<<n_keys, kSelectThreads, 0, stream>>>(masked0, n, kc, nf0,
-                                                   unordered);
-  dim3 rank_grid((kc + kRankThreads - 1) / kRankThreads, n_keys);
-  k2_rank<<<rank_grid, kRankThreads, 0, stream>>>(masked0, unordered, n, kc,
-                                                  cand);
+      penalty, distinct, n, r_dims, masked0, sw.states, sw.hist, kc);
+  launch_select(masked0, n, n_keys, kc, work, nf0, unordered, cand, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,10 +26,13 @@
 //                          score per key [T, n_loc] read from the packed
 //                          table (the K1/K2 arithmetic), its feasible count,
 //                          the top-B rows per key by (score desc, row asc)
-//                          through K2's select and rank (select.cuh), then
+//                          through K2's select and rank (select.cuh: a radix
+//                          select spread over the card), then
 //                          the packet [T*B, W = 6+2R+T] in the reference's
 //                          column layout and the top-B values [T, B]. Bound:
-//                          bytes (the shard's table, usage and masks once).
+//                          bytes (the shard's table, usage and masks once);
+//                          the select's launches set its time at 131,072
+//                          rows a shard.
 //   K9 nomad_pool_build    replaces pool_build (:819-836): a stable sort of
 //                          the S*T*B packet rows by global row (unique u64
 //                          keys row << 32 | position, one block, bitonic, in
@@ -136,9 +139,12 @@ __global__ void k8_score(const float* __restrict__ table,
                          const uint8_t* __restrict__ masks, int64_t mask_ld,
                          const float* __restrict__ key_demands, float penalty,
                          int distinct, int n_loc, int r_dims,
-                         float* __restrict__ masked0) {
+                         float* __restrict__ masked0,
+                         SelectState* __restrict__ sel_states,
+                         unsigned int* __restrict__ sel_hist, int b_buf) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
+  if (blockIdx.x == 0) select_init(sel_states, sel_hist, t, n_loc, b_buf);
   if (row >= n_loc) return;
   const int w = r_dims + 5;
   const float* tab = table + static_cast<int64_t>(row) * w;
@@ -390,26 +396,24 @@ int nomad_apply_ring(const float* usage, const float* ring, int ring_rows,
 // K8. One shard: table [n_loc, r_dims + 5], usage [n_loc, r_dims], masks
 // [n_keys, n_loc] at row stride mask_ld (a column slice of [T, N]); outputs
 // pkt [n_keys * b_buf, 6 + 2 r_dims + n_keys], nf0 [n_keys], vals [n_keys,
-// b_buf]; masked0 [n_keys, n_loc], unordered and cand [n_keys, b_buf] are
-// scratch.
+// b_buf]; masked0 [n_keys, n_loc], unordered and cand [n_keys, b_buf] and
+// work (nomad_select_work_bytes(n_keys) bytes) are scratch.
 int nomad_cold_packet(const float* table, const float* usage,
                       const uint8_t* masks, int64_t mask_ld,
                       const float* key_demands, float penalty, int distinct,
                       int n_loc, int r_dims, int n_keys, int b_buf,
                       int row_base, float* masked0, int32_t* unordered,
                       int32_t* cand, float* pkt, int32_t* nf0, float* vals,
-                      cudaStream_t stream) {
+                      void* work, cudaStream_t stream) {
   if (r_dims < 2 || b_buf < 1 || b_buf > n_loc)
     return static_cast<int>(cudaErrorInvalidValue);
+  const SelectWork sw = select_work(work, n_keys);
   dim3 score_grid(blocks_for(n_loc), n_keys);
-  k8_score<<<score_grid, kThreads, 0, stream>>>(table, usage, masks, mask_ld,
-                                                key_demands, penalty, distinct,
-                                                n_loc, r_dims, masked0);
-  k2_select<<<n_keys, kSelectThreads, 0, stream>>>(masked0, n_loc, b_buf, nf0,
-                                                   unordered);
-  dim3 rank_grid((b_buf + kRankThreads - 1) / kRankThreads, n_keys);
-  k2_rank<<<rank_grid, kRankThreads, 0, stream>>>(masked0, unordered, n_loc,
-                                                  b_buf, cand);
+  k8_score<<<score_grid, kThreads, 0, stream>>>(
+      table, usage, masks, mask_ld, key_demands, penalty, distinct, n_loc,
+      r_dims, masked0, sw.states, sw.hist, b_buf);
+  launch_select(masked0, n_loc, n_keys, b_buf, work, nf0, unordered, cand,
+                stream);
   k8_packet<<<blocks_for(static_cast<int64_t>(n_keys) * b_buf), kThreads, 0,
               stream>>>(table, usage, masks, mask_ld, masked0, cand, n_keys,
                         n_loc, b_buf, r_dims, row_base, pkt, vals);

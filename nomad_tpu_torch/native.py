@@ -149,20 +149,25 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_int64
 _SIGNATURES = {
-    "nomad_score_topk": [_P] * 8 + [_F, _I, _I, _I, _I, _I] + [_P] * 4 + [_P],
+    "nomad_score_topk": [_P] * 8 + [_F, _I, _I, _I, _I, _I] + [_P] * 5 + [_P],
     "nomad_merge_candidates": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 6 + [_P],
     "nomad_placement_chain": [_P] * 11 + [_F, _I, _I, _I, _I, _I, _I]
-    + [_P] * 11 + [_P],
+    + [_P] * 12 + [_L, _P],
     "nomad_scatter_refresh": [_P, _I, _I, _I, _P, _P, _P, _P],
     "nomad_compact_window": [_P, _P, _P, _I, _I] + [_P] * 4 + [_P],
     "nomad_mesh_pack": [_P] * 5 + [_I, _I, _P, _P],
     "nomad_apply_ring": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "nomad_cold_packet": [_P, _P, _P, _L, _P, _F, _I, _I, _I, _I, _I, _I]
-    + [_P] * 6 + [_P],
+    + [_P] * 7 + [_P],
     "nomad_pool_build": [_P, _I, _I, _P, _P, _I, _I, _I, _I] + [_P] * 13
     + [_P],
     "nomad_warm_finish": [_P] * 11 + [_I, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I] + [_P] * 4 + [_P],
+}
+# Entries that return a byte count (int64) rather than a cudaError_t.
+_SIZES = {
+    "nomad_select_work_bytes": [_I],
+    "nomad_placement_chain_work_bytes": [_I, _I, _I],
 }
 
 
@@ -178,6 +183,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in _SIZES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int64
             _lib = lib
         return _lib
 

@@ -163,12 +163,15 @@ def score_topk(capacity, score_cap, usage, tg_masks, job_counts0,
     nf0 = torch.empty(t, dtype=torch.int32, device=dev)
     unordered = torch.empty((t, kc), dtype=torch.int32, device=dev)
     cand = torch.empty((t, kc), dtype=torch.int32, device=dev)
+    lib = native.library()
+    work = torch.empty(lib.nomad_select_work_bytes(t), dtype=torch.uint8,
+                       device=dev)
     p = native.ptr
-    err = native.library().nomad_score_topk(
+    err = lib.nomad_score_topk(
         p(capacity), p(score_cap), p(usage), p(_u8(tg_masks)), p(job_counts0),
         p(key_demands), p(noise), p(_u8(banned0)), float(penalty),
         int(bool(distinct)), n, r, t, kc, p(masked0), p(nf0), p(unordered),
-        p(cand), native.stream(dev))
+        p(cand), p(work), native.stream(dev))
     native.check("score_topk", err)
     return masked0, nf0, cand
 
@@ -371,15 +374,18 @@ def placement_chain(capacity, score_cap, usage, tg_masks, job_counts0,
     usage_out = torch.empty_like(usage)
     win = (torch.empty(steps, dtype=torch.int32, device=dev) if winners
            else None)
+    lib = native.library()
+    work_bytes = lib.nomad_placement_chain_work_bytes(n_table, steps, r)
+    work = torch.empty(work_bytes, dtype=torch.uint8, device=dev)
     p = native.ptr
-    err = native.library().nomad_placement_chain(
+    err = lib.nomad_placement_chain(
         p(capacity), p(score_cap), p(usage), p(_u8(tg_masks)), p(job_counts0),
         p(_u8(banned0)), p(noise), p(demands), p(tg_ids), p(_u8(valid)),
         p(_u8(reset)) if reset is not None else None, float(penalty),
         int(bool(distinct)), n, r, t, steps, n_table, p(rows),
         p(_u8(keep)) if keep is not None else None, p(masked0), p(nf0),
         p(c_use), p(c_cnt), p(c_ban), p(ok0_sum), p(packed), p(usage_out),
-        p(win), native.stream(dev))
+        p(win), p(work), work_bytes, native.stream(dev))
     native.check("placement_chain", err)
     if winners:
         return packed, usage_out, win, c_use
@@ -694,12 +700,15 @@ def cold_packet(table, usage, tg_masks, key_demands, penalty: float,
     pkt = torch.empty((t * b_buf, w), dtype=torch.float32, device=dev)
     nf0 = torch.empty(t, dtype=torch.int32, device=dev)
     vals = torch.empty((t, b_buf), dtype=torch.float32, device=dev)
+    lib = native.library()
+    work = torch.empty(lib.nomad_select_work_bytes(t), dtype=torch.uint8,
+                       device=dev)
     p = native.ptr
-    err = native.library().nomad_cold_packet(
+    err = lib.nomad_cold_packet(
         p(table), p(usage), p(_u8(tg_masks)), tg_masks.stride(0),
         p(key_demands), float(penalty), int(bool(distinct)), n_loc, r, t,
         b_buf, int(row_base), p(masked0), p(unordered), p(cand), p(pkt),
-        p(nf0), p(vals), native.stream(dev))
+        p(nf0), p(vals), p(work), native.stream(dev))
     native.check("cold_packet", err)
     return pkt, nf0, vals
 
