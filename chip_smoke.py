@@ -58,14 +58,21 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            window of P = 1,024 steps with 800 valid placements (k = 1,024,
            B = 2,048), S = 8 logical shards of the card. Each of K6-K10
            against its plain version bit for bit on the chain's own stage
-           inputs (kernel, plain and, for K6, library times); then 6
+           inputs (kernel, plain and, for K6, library times); K7 over all
+           shards in one call against the per-shard plain versions (the
+           chain's ring, 65,536-row rings at 1M and 16,384 rows, an empty
+           ring) and K9 on synthetic packets (T = 3, S = 1-8, B = 1, B a
+           whole shard, B = 8,192, segments beyond shared memory); then 6
            chained windows (1 cold, 5 warm: the ring holds 16 windows)
            through `place_batch_keyed` on the mesh and on one device, bit
            for bit on `packed` and the materialized usage, with per-window
-           times, the exchanged bytes and the launches per window; K2 on
-           the whole 1,048,576-row table against its plain version and
+           times, the exchanged bytes and the launches per window (pinned:
+           one K7 call and one K8 per shard per cold window); K2 on the
+           whole 1,048,576-row table against its plain version and
            torch.topk; torch.topk and torch.sort as K8's and K9's
-           yardsticks.
+           yardsticks; last, K7's, K9's and torch.sort's host time and
+           device-only time a call (torch.profiler), taken after every
+           event time because a profiler run slows later launches.
   mesh-served-identity
            the served path's window on the mesh at full width: the dev
            server of served-identity with its table on S = 8 logical
@@ -191,6 +198,37 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int):
+    """Device-only time of fn per call, and its device activities (kernels,
+    copies, fills) per call: torch.profiler's CUDA activity over reps calls
+    after one warm-up call, summed and divided by reps. Unlike time_ms it
+    leaves out the host's time between launches. Also the device time a
+    call by kernel name. (None, 0, {}) when the trace holds no device
+    time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count, by_name = 0.0, 0, {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us:
+            total_us += us
+            count += ev.count
+            name = ev.key.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0].split("<")[0].split("::")[-1]
+            name = name.strip()[:40]
+            by_name[name] = by_name.get(name, 0.0) + us / 1e3 / reps
+    if total_us == 0:
+        return None, 0, {}
+    return total_us / 1e3 / reps, count / reps, by_name
 
 
 def bound(nbytes: float, ops: float):
@@ -1394,6 +1432,60 @@ def _max_err(torch, outs_a, outs_b) -> float:
     return err
 
 
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def ring_case(torch, dev, cap, n, seed):
+    """A full pending ring [cap, 6] over n rows, made from a seed: rows
+    drawn from all n (repeats, so later entries must win), every shard's
+    first and last rows near its end, and a fifth of the entries -1."""
+    rng = np.random.default_rng(seed)
+    ring = np.empty((cap, 6), np.float32)
+    ring[:, 0] = rng.integers(0, n, cap)
+    ring[:, 1:] = rng.uniform(0, 500, (cap, 5))
+    n_loc = n // MESH_SHARDS
+    edges = np.array([[q * n_loc, q * n_loc + n_loc - 1]
+                      for q in range(MESH_SHARDS)]).reshape(-1)
+    ring[-2 * len(edges):-len(edges), 0] = edges
+    ring[rng.random(cap) < 0.2, 0] = -1.0
+    return torch.tensor(ring, device=dev)
+
+
+# K9's packet shapes on the card: (S, T, B, rows a shard, rows repeated
+# across shards).
+POOL_CASES = [(8, 3, 48, 64, False), (1, 1, 64, 256, False),
+              (2, 2, 128, 512, False), (4, 1, 256, 1024, False),
+              (8, 2, 1, 16, False), (4, 3, 256, 256, False),
+              (2, 3, 100, 300, False), (4, 2, 96, 200, True),
+              (8, 1, 2048, 2048, False), (8, 1, 2048, 131072, False),
+              (2, 1, 8192, 8192, False), (2, 3, 16384, 16384, False),
+              (2, 1, 32768, 65536, False)]
+
+
+def pool_packets(torch, dev, s, t, b, n_loc, overlap, r=5):
+    """Exchanged packets as the cold stage lays them, made from a seed: per
+    shard and key a segment of B distinct rows of the shard in no row
+    order (the keys of one shard share rows), each packet row's columns
+    distinct. overlap=True draws every shard's rows from one range.
+    Returns pool_build's arguments on dev."""
+    rng = np.random.default_rng(s * 1000 + t * 100 + b)
+    w = 6 + 2 * r + t
+    cand = rng.uniform(0, 100, (s * t * b, w)).astype(np.float32)
+    for sh in range(s):
+        base = 0 if overlap else sh * n_loc
+        for q in range(t):
+            cand[(sh * t + q) * b:(sh * t + q + 1) * b, 0] = \
+                base + rng.choice(n_loc, b, replace=False)
+    cand[:, 3 + 2 * r] = rng.integers(0, 4, len(cand))
+    cand[:, 4 + 2 * r] = rng.random(len(cand)) < 0.2
+    cand[:, 6 + 2 * r:] = rng.random((len(cand), t)) < 0.7
+    vals = -np.sort(-rng.uniform(-5, 5, (s, t, b)), axis=2).astype(np.float32)
+    nf = rng.integers(0, n_loc + 1, (s, t)).astype(np.int32)
+    kd = rng.uniform(5, 40, (t, r)).astype(np.float32)
+    return tuple(torch.tensor(a, device=dev) for a in (cand, nf, vals, kd))
+
+
 def mesh_inputs(torch, dev):
     """bench_mesh_1m's data (bench.py _mesh_child, seed 1): MESH_ROWS rows,
     one key, P = MESH_P steps with MESH_VALID valid, a reset every 64."""
@@ -1418,10 +1510,12 @@ def mesh_inputs(torch, dev):
     return {k: torch.tensor(v, device=dev) for k, v in arrs.items()}
 
 
-def mesh_phase(torch, gpu: str, dev):
+def mesh_phase(torch, gpu: str, dev, pin_launches=True):
     """K6-K10 against their plain versions on the 1M-row chain's own stage
     inputs, then the 6-window mesh chain against the single-device keyed
-    path. Returns the kernels table entries of K6-K10."""
+    path. Returns the kernels table entries of K6-K10. pin_launches holds
+    the launches per window to this checkout's design (off when another
+    commit's package is driven)."""
     from nomad_tpu_torch import native
     from nomad_tpu_torch.parallel import place_batch_sharded, scheduling_mesh
     from nomad_tpu_torch.scheduler import kernels as K
@@ -1457,6 +1551,15 @@ def mesh_phase(torch, gpu: str, dev):
         chain.append(res)
         usage = res.usage_after
     stats = K.mesh_stats_drain()
+    if pin_launches:
+        # One K7 call per cold window covers all shards; K8 per shard.
+        cold = {"mesh_pack": 1, "apply_ring": 1, "cold_packet": MESH_SHARDS,
+                "pool_build": 1, "score_topk": 1, "merge_candidates": 1,
+                "placement_chain": 1, "warm_finish": 1}
+        warm = {"score_topk": 1, "merge_candidates": 1, "placement_chain": 1,
+                "warm_finish": 1}
+        check(per_window == [cold] + [warm] * (MESH_WINDOWS - 1),
+              f"mesh: launches per window {per_window}")
     check(stats["windows"] == MESH_WINDOWS
           and stats["warm_windows"] == MESH_WINDOWS - 1,
           f"mesh: windows {stats}")
@@ -1495,16 +1598,47 @@ def mesh_phase(torch, gpu: str, dev):
         "mesh_pack", K.mesh_pack, K.mesh_pack_plain, pack, 50, 20,
         n * (4 * r + 8 + 4 + 4 + 1) + n * (r + 5) * 4, 0,
         library=lambda: torch.cat(cols, dim=1))[0]
-    # K7 on every shard with the final chain's ring (5 windows of winners).
+    # K7 over every shard's rows in one call (row_base 0, as a_cold and
+    # apply_fn call it) against the per-shard plain versions laid end to
+    # end: the final chain's ring (5 windows of winners), then 65,536-row
+    # rings (mesh-served's) at 1M and at 16,384 rows, and an empty one;
+    # each through the program's apply_fn twice (its scratch must come
+    # back to -1) and through the wrapper with a scratch of its own. The
+    # per-shard form (ROADMAP A7) against its plain version per shard.
     ring, ring_rows = last.ring, last.ring.shape[0]
     for s in range(MESH_SHARDS):
         use_s = last.usage[s * n_loc:(s + 1) * n_loc]
         check(_bits_equal(torch, K.apply_ring(use_s, ring, s * n_loc),
                           K.apply_ring_plain(use_s, ring, s * n_loc)),
               f"mesh apply_ring shard {s}: kernel and plain differ")
-    stage("apply_ring", K.apply_ring, K.apply_ring_plain,
-          (last.usage[:n_loc], ring, 0), 50, 10,
-          2 * n_loc * r * 4 + ring_rows * (r + 1) * 4, 0)
+    for what, use, rg in (
+            ("the chain's ring", last.usage, ring),
+            ("a 65,536-row ring", last.usage,
+             ring_case(torch, dev, 65536, n, 71)),
+            ("a 65,536-row ring over 16,384 rows", last.usage[:16384],
+             ring_case(torch, dev, 65536, 16384, 72)),
+            ("an empty ring", last.usage[:16384],
+             torch.full((1024, r + 1), -1.0, device=dev))):
+        rows_s = use.shape[0] // MESH_SHARDS
+        per = torch.cat([K.apply_ring_plain(use[q * rows_s:(q + 1) * rows_s],
+                                            rg, q * rows_s)
+                         for q in range(MESH_SHARDS)])
+        check(all(_bits_equal(torch, got, per) for got in (
+            prog.apply_fn(use, rg), prog.apply_fn(use, rg),
+            K.apply_ring(use, rg, 0))),
+              f"mesh apply_ring over all shards, {what}: kernel and the "
+              f"per-shard plain versions differ")
+    # Timed as a cold window applies it: the program's apply_fn (one call
+    # here, one per shard in a package that calls K7 per shard).
+    stage("apply_ring", prog.apply_fn,
+          lambda u, rg: K.apply_ring_plain(u, rg, 0), (last.usage, ring),
+          50, 10, 2 * n * r * 4 + ring_rows * (r + 1) * 4, 0)
+    # Device-only times come last: a profiler run slows the launches
+    # that follow it, so no event time is taken after one.
+    device_only = [(f"apply_ring over {n} rows, ring {ring_rows} rows, as "
+                    f"a cold window applies it",
+                    table["apply_ring"]["ms"],
+                    lambda: prog.apply_fn(last.usage, ring), 50)]
     # K8 on every shard of the cold window's input (the start usage).
     mask_s = [d["tg_masks"][:, s * n_loc:(s + 1) * n_loc]
               for s in range(MESH_SHARDS)]
@@ -1528,6 +1662,19 @@ def mesh_phase(torch, gpu: str, dev):
           n_loc * ((r + 5) * 4 + r * 4 + t) + t * b_buf * (w + 1) * 4 + t * 4,
           t * n_loc * (3 * r + 20),
           library=lambda: torch.topk(masked_s0, b_buf, dim=1, sorted=True))
+    # K9 against its plain version on synthetic packets: T = 3 keys
+    # sharing a shard's rows, S = 1, 2, 4, 8, B = 1, B = a whole shard, B
+    # no power of two, rows repeated across shards, B = 8,192 (k = 4,096),
+    # T * B keys beyond 227 KB, a segment beyond the shared-memory sort,
+    # and mesh-served's 16,384 rows (B = 2,048 = a whole shard).
+    for case in POOL_CASES:
+        args = pool_packets(torch, dev, *case)
+        check(all(_bits_equal(torch, a, b) for a, b in zip(
+            K.pool_build(*args), K.pool_build_plain(*args))),
+              f"mesh pool_build {case}: kernel and plain differ")
+    print(f"phase mesh pool_build: identical to plain bit for bit on "
+          f"{len(POOL_CASES)} packet shapes (S, T, B, rows a shard, "
+          f"overlap) {POOL_CASES}", flush=True)
     # K9 on the cold window's exchange.
     pkts, _, nfs, vals = prog.a_cold(packed_table, d["usage"], d["tg_masks"],
                                      d["key_demands"], 10.0, False,
@@ -1543,6 +1690,12 @@ def mesh_phase(torch, gpu: str, dev):
                  nbytes(*ex) + c * (r * 4 + 1 + 4 + r * 4 + 8 + 4 + 1 + 4
                                     + t), c * np.log2(c) ** 2 / 2,
                  library=lambda: torch.sort(pool_keys))
+    device_only += [
+        (f"pool_build at {c} packet rows", table["pool_build"]["ms"],
+         lambda: K.pool_build(*ex, d["key_demands"]), 20),
+        (f"torch.sort of pool_build's {c} keys",
+         table["pool_build"]["library_ms"], lambda: torch.sort(pool_keys),
+         20)]
     pool = K.PoolState(*pool)
     # K10 on the last window's warm step: its K2, K3 and K4a outputs.
     prev = chain[-2].usage_after
@@ -1667,6 +1820,41 @@ def mesh_phase(torch, gpu: str, dev):
           f"{['%.4f' % x for x in t_one]}, mesh again "
           f"{['%.4f' % x for x in t_mesh2]}", flush=True)
     print(f"phase mesh: launches per window {per_window}", flush=True)
+    host = []
+    for _, _, fn, reps in device_only:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / reps)
+        torch.cuda.synchronize()
+    # What a wrapper's host time is made of: one ctypes call that makes
+    # K7's two launches (its arguments prepared), and one torch.empty.
+    lib = native.library()
+    k7_out = torch.empty_like(last.usage)
+    k7_pos = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    raw = (last.usage.data_ptr(), ring.data_ptr(), ring_rows, r, 0, n,
+           k7_pos.data_ptr(), k7_out.data_ptr(),
+           torch.cuda.current_stream(dev).cuda_stream)
+    costs = []
+    for fn in (lambda: lib.nomad_apply_ring(*raw),
+               lambda: torch.empty(c, device=dev)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        costs.append((time.perf_counter() - t0) * 1e3 / 200)
+        torch.cuda.synchronize()
+    print(f"phase mesh host costs: one ctypes call making K7's two launches "
+          f"{costs[0]:.4f} ms, one torch.empty {costs[1]:.4f} ms", flush=True)
+    for (what, ev_ms, fn, reps), host_ms in zip(device_only, host):
+        dev_ms, acts, by_name = device_ms(torch, fn, reps)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"phase mesh {what}: {ev_ms:.4f} ms by events, {_fmt(dev_ms)} "
+              f"ms on the device ({acts:g} device activities a call: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in top)
+              + f"), {host_ms:.4f} ms of host time a call", flush=True)
     return table
 
 
@@ -1862,7 +2050,8 @@ def main() -> int:
     launches = dict(served_phase(torch, gpu) if "served" in phases
                     else storm_launches)
     if "mesh" in phases:
-        table.update(mesh_phase(torch, gpu, dev))
+        table.update(mesh_phase(torch, gpu, dev,
+                                pin_launches=args.package_root is None))
     if "mesh-served-identity" in phases:
         mesh_served_identity_phase(torch, gpu, dev)
     # K6-K10 run only on a mesh: their launches are the mesh-served

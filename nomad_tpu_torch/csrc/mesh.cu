@@ -2,11 +2,11 @@
 // _MeshKeyedProgram, nomad_tpu/scheduler/kernels.py:712-977).
 //
 // The mesh's S shards are logical shards: row slices of the node tables, each
-// on its shard's device. A cold window runs K7 and K8 once per shard over
-// that shard's rows only, the per-shard packets meet on the lead device, and
-// K9 merges them into the resident candidate pool; every window (cold or
-// warm) then runs K2, K3 and K4a over the pool taken as a table and K10 for
-// the rest of the reference's warm step.
+// on its shard's device. A cold window runs K7 once over every shard's rows
+// and K8 once per shard over that shard's rows only, the per-shard packets
+// meet on the lead device, and K9 merges them into the resident candidate
+// pool; every window (cold or warm) then runs K2, K3 and K4a over the pool
+// taken as a table and K10 for the rest of the reference's warm step.
 //
 //   K6 nomad_mesh_pack     replaces pack_fn (:745-756): capacity [N,R],
 //                          score_cap [N,2], counts i32, noise, banned bool ->
@@ -15,13 +15,22 @@
 //                          row at R = 5).
 //   K7 nomad_apply_ring    replaces _apply_ring / apply_ring_full (:758-775,
 //                          :964-967): last-write-wins scatter of the pending
-//                          winner ring [cap, 1+R] into one shard's usage
-//                          [n_loc, R], written to a new tensor. An atomicMax
-//                          of ring positions into an int scratch [n_loc]
-//                          picks each row's last entry (the reference's
-//                          scatter-max), then one pass copies each row from
-//                          the ring or the old usage. Bound: bytes (the
-//                          shard's usage read and written once).
+//                          winner ring [cap, 1+R] into usage [n, R] rows
+//                          [row_base, row_base + n), written to a new
+//                          tensor. On logical shards one call covers every
+//                          shard (row_base 0): a ring entry's row belongs to
+//                          one shard, so that is the per-shard applications
+//                          laid end to end. Two launches: a mark pass (one
+//                          thread per ring entry) atomicMaxes ring positions
+//                          into an int scratch [n] that holds -1 between
+//                          calls (the reference's scatter-max), and a write
+//                          pass (a 256-row tile per block, staged through
+//                          shared memory so reads and writes coalesce)
+//                          copies each row from its last ring entry or the
+//                          old usage and puts back -1 where the mark pass
+//                          wrote, so no fill pass runs. Bound: bytes (the
+//                          usage read and written once, the ring's row
+//                          column read once).
 //   K8 nomad_cold_packet   replaces a_cold (:777-817): one shard's masked
 //                          score per key [T, n_loc] read from the packed
 //                          table (the K1/K2 arithmetic), its feasible count,
@@ -33,18 +42,30 @@
 //                          bytes (the shard's table, usage and masks once);
 //                          the select's launches set its time at 131,072
 //                          rows a shard.
-//   K9 nomad_pool_build    replaces pool_build (:819-836): a stable sort of
-//                          the S*T*B packet rows by global row (unique u64
-//                          keys row << 32 | position, one block, bitonic, in
-//                          shared memory up to 16,384 rows and in a global
-//                          buffer beyond), first-occurrence keep, pool_use,
-//                          tau[t] = max_s vals[s, t, B-1], nf0 = sum_s nf0_s,
-//                          and the pool's columns gathered from the sorted
-//                          packets as K2 and K4a read a table (rows,
+//   K9 nomad_pool_build    replaces pool_build (:819-836): the S*T*B packet
+//                          rows in ascending (global row, position) order,
+//                          first-occurrence keep, pool_use, tau[t] = max_s
+//                          vals[s, t, B-1], nf0 = sum_s nf0_s, and the
+//                          pool's columns as K2 and K4a read a table (rows,
 //                          capacity, score_cap, counts, bans, noise,
 //                          eligibility AND keep as [T, C]); the packed pool
-//                          [C, W] itself is never written. Bound: the sort's
-//                          latency; it moves under 2.5 MB at the 1M-row shape.
+//                          [C, W] itself is never written. The packets are
+//                          S*T segments of B rows (one per shard and key),
+//                          so two launches over the card: one block per
+//                          segment sorts its B unique u64 keys (row << 32 |
+//                          position) by bitonic sort, in shared memory up to
+//                          16,384 keys and in place in the key buffer
+//                          beyond; then one thread per row places it at its
+//                          rank in its own segment plus, for every other
+//                          segment, the count of keys below its own (a
+//                          binary search, eight segments' searches
+//                          interleaved), and the largest of those keys is
+//                          its predecessor in the merged order, which
+//                          decides keep. That thread gathers the row's
+//                          columns straight to their final index. Exact for
+//                          any packet: the keys are unique. Bound: bytes
+//                          (under 2.5 MB at the 1M-row shape); the sort's
+//                          barriers set its time.
 //   K10 nomad_warm_finish  replaces the rest of warm_step (:870-878,
 //                          :942-962) after K2 (window-start pass over the
 //                          pool), K3 (sorted selection, first-occurrence
@@ -73,7 +94,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlockThreads = 1024;
 constexpr int kWarpsPerBlock = kBlockThreads / 32;
-constexpr int kSmemSortBytes = 128 * 1024;  // K9 sorts in shared memory up to this
+constexpr int kApplyRows = 256;      // K7's write pass: rows per block
+constexpr int kSmemSortKeys = 16384;  // K9 sorts a segment in shared memory up to this
+constexpr int kSearchLanes = 8;       // K9: segments searched side by side
 
 inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
@@ -101,33 +124,45 @@ __global__ void k6_pack(const float* __restrict__ capacity,
 
 // ------------------------------------------------------------------ K7
 
-__global__ void k7_fill(int32_t* __restrict__ pos, int n_loc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_loc) pos[i] = -1;
-}
-
+// One thread per ring entry: the last entry per owned row wins. pos holds
+// -1 on entry for every row.
 __global__ void k7_mark(const float* __restrict__ ring, int ring_rows,
-                        int r_dims, int row_base, int n_loc,
+                        int r_dims, int row_base, int n_rows,
                         int32_t* __restrict__ pos) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= ring_rows) return;
   const float rf = ring[static_cast<int64_t>(i) * (r_dims + 1)];
   if (!(rf >= 0.0f)) return;  // padding / not-found entries carry -1
   const int drow = static_cast<int>(rf) - row_base;
-  if (drow >= 0 && drow < n_loc) atomicMax(&pos[drow], i);
+  if (drow >= 0 && drow < n_rows) atomicMax(&pos[drow], i);
 }
 
+// One block per kApplyRows rows: the tile of old usage through shared
+// memory, each marked row overwritten from its ring entry (and its pos put
+// back to -1), the tile written out.
 __global__ void k7_write(const float* __restrict__ usage,
                          const float* __restrict__ ring,
-                         const int32_t* __restrict__ pos, int n_loc,
-                         int r_dims, float* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<int64_t>(n_loc) * r_dims) return;
-  const int64_t row = i / r_dims;
-  const int k = static_cast<int>(i - row * r_dims);
-  const int p = pos[row];
-  out[i] = p >= 0 ? ring[static_cast<int64_t>(p) * (r_dims + 1) + 1 + k]
-                  : usage[i];
+                         int32_t* __restrict__ pos, int n_rows, int r_dims,
+                         float* __restrict__ out) {
+  extern __shared__ float tile[];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kApplyRows;
+  const int rows = static_cast<int>(
+      n_rows - row0 < kApplyRows ? n_rows - row0 : kApplyRows);
+  const int n_el = rows * r_dims;
+  const float* src = usage + row0 * r_dims;
+  for (int e = threadIdx.x; e < n_el; e += blockDim.x) tile[e] = src[e];
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    const int p = pos[row0 + threadIdx.x];
+    if (p >= 0) {
+      pos[row0 + threadIdx.x] = -1;
+      const float* ent = ring + static_cast<int64_t>(p) * (r_dims + 1) + 1;
+      for (int k = 0; k < r_dims; ++k) tile[threadIdx.x * r_dims + k] = ent[k];
+    }
+  }
+  __syncthreads();
+  float* dst = out + row0 * r_dims;
+  for (int e = threadIdx.x; e < n_el; e += blockDim.x) dst[e] = tile[e];
 }
 
 // ------------------------------------------------------------------ K8
@@ -197,29 +232,35 @@ __global__ void k8_packet(const float* __restrict__ table,
 
 // ------------------------------------------------------------------ K9
 
-// One block: the stable sort by global row, tau and nf0.
-__global__ void k9_sort(const float* __restrict__ cand, int n_cand, int w,
-                        const int32_t* __restrict__ nf_all,
+// One block per segment g (B packet rows): its keys row << 32 | position,
+// the row's sign bit flipped so unsigned order is the int32 order, sorted
+// into skeys[g * ld, g * ld + B) (ld = next_pow2(B)). Block 0 also writes
+// tau and nf0.
+__global__ void k9_sort(const float* __restrict__ cand, int b_buf, int w,
+                        int ld, const int32_t* __restrict__ nf_all,
                         const float* __restrict__ vals_all, int n_shards,
-                        int n_keys, int b_buf, uint64_t* __restrict__ gbuf,
-                        int32_t* __restrict__ order, float* __restrict__ tau,
-                        int32_t* __restrict__ nf0) {
+                        int n_keys, uint64_t* __restrict__ skeys,
+                        float* __restrict__ tau, int32_t* __restrict__ nf0) {
   extern __shared__ uint64_t sbuf[];
-  const int n_pow2 = next_pow2(n_cand);
-  uint64_t* buf = gbuf != nullptr ? gbuf : sbuf;
-  for (int i = threadIdx.x; i < n_pow2; i += blockDim.x) {
-    if (i < n_cand) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * b_buf;
+  uint64_t* seg = skeys + static_cast<int64_t>(blockIdx.x) * ld;
+  const bool in_smem = ld <= kSmemSortKeys;
+  uint64_t* buf = in_smem ? sbuf : seg;
+  for (int i = threadIdx.x; i < ld; i += blockDim.x) {
+    if (i < b_buf) {
       const uint32_t row = static_cast<uint32_t>(
-          static_cast<int32_t>(cand[static_cast<int64_t>(i) * w]));
-      buf[i] = (static_cast<uint64_t>(row) << 32) | static_cast<uint32_t>(i);
+          static_cast<int32_t>(cand[(first + i) * w]));
+      buf[i] = (static_cast<uint64_t>(row ^ 0x80000000u) << 32) |
+               static_cast<uint32_t>(first + i);
     } else {
       buf[i] = ~0ull;
     }
   }
   __syncthreads();
-  block_bitonic_sort(buf, n_pow2);
-  for (int i = threadIdx.x; i < n_cand; i += blockDim.x)
-    order[i] = static_cast<int32_t>(buf[i] & 0xffffffffu);
+  block_bitonic_sort(buf, ld);
+  if (in_smem)
+    for (int i = threadIdx.x; i < b_buf; i += blockDim.x) seg[i] = buf[i];
+  if (blockIdx.x != 0) return;
   for (int t = threadIdx.x; t < n_keys; t += blockDim.x) {
     float m = vals_all[static_cast<int64_t>(t) * b_buf + b_buf - 1];
     int32_t s_nf = nf_all[t];
@@ -233,36 +274,71 @@ __global__ void k9_sort(const float* __restrict__ cand, int n_cand, int w,
   }
 }
 
-// One thread per pool row: keep, pool_use and the pool's columns, gathered
-// from the row's packet.
-__global__ void k9_gather(const float* __restrict__ cand,
-                          const int32_t* __restrict__ order, int n_cand, int w,
-                          int r_dims, int n_keys, float* __restrict__ pool_use,
-                          uint8_t* __restrict__ keep, int32_t* __restrict__ rows,
-                          float* __restrict__ cap, float* __restrict__ sc,
-                          int32_t* __restrict__ cnt, uint8_t* __restrict__ ban,
-                          float* __restrict__ noise,
-                          uint8_t* __restrict__ elig) {
+// One thread per packet row, taken in sorted-segment order: its index in
+// the merged order (its rank in its segment plus, per other segment, the
+// keys below it: a binary search by powers of two from top = the largest
+// power of two <= B), its predecessor there (the largest key below it of
+// any segment) for keep, and its columns gathered to that index.
+__global__ void k9_place(const float* __restrict__ cand,
+                         const uint64_t* __restrict__ skeys, int ld, int n_seg,
+                         int b_buf, int top, int w, int r_dims, int n_keys,
+                         float* __restrict__ pool_use,
+                         uint8_t* __restrict__ keep, int32_t* __restrict__ rows,
+                         float* __restrict__ cap, float* __restrict__ sc,
+                         int32_t* __restrict__ cnt, uint8_t* __restrict__ ban,
+                         float* __restrict__ noise,
+                         uint8_t* __restrict__ elig) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n_cand = n_seg * b_buf;
   if (i >= n_cand) return;
-  const float* src = cand + static_cast<int64_t>(order[i]) * w;
-  const int32_t row = static_cast<int32_t>(src[0]);
-  const bool kept =
-      i == 0 || row != static_cast<int32_t>(
-                           cand[static_cast<int64_t>(order[i - 1]) * w]);
-  keep[i] = kept ? 1 : 0;
-  rows[i] = row;
-  for (int k = 0; k < r_dims; ++k) {
-    cap[static_cast<int64_t>(i) * r_dims + k] = src[1 + k];
-    pool_use[static_cast<int64_t>(i) * r_dims + k] = src[3 + r_dims + k];
+  const int g = i / b_buf;
+  const int j = i - g * b_buf;
+  const uint64_t* own = skeys + static_cast<int64_t>(g) * ld;
+  const uint64_t key = own[j];
+  int dst = j;
+  bool has_pred = j > 0;
+  uint64_t pred = has_pred ? own[j - 1] : 0;
+  for (int h0 = 0; h0 < n_seg; h0 += kSearchLanes) {
+    int lo[kSearchLanes];
+#pragma unroll
+    for (int q = 0; q < kSearchLanes; ++q) lo[q] = 0;
+    for (int step = top; step > 0; step >>= 1) {
+#pragma unroll
+      for (int q = 0; q < kSearchLanes; ++q) {
+        const int h = h0 + q;
+        const int probe = lo[q] + step;
+        if (h < n_seg && h != g && probe <= b_buf &&
+            skeys[static_cast<int64_t>(h) * ld + probe - 1] < key)
+          lo[q] = probe;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kSearchLanes; ++q) {
+      const int h = h0 + q;
+      if (h >= n_seg || h == g || lo[q] == 0) continue;
+      dst += lo[q];
+      const uint64_t below = skeys[static_cast<int64_t>(h) * ld + lo[q] - 1];
+      if (!has_pred || below > pred) {
+        pred = below;
+        has_pred = true;
+      }
+    }
   }
-  sc[2 * static_cast<int64_t>(i)] = src[1 + r_dims];
-  sc[2 * static_cast<int64_t>(i) + 1] = src[2 + r_dims];
-  cnt[i] = static_cast<int32_t>(src[3 + 2 * r_dims]);
-  ban[i] = src[4 + 2 * r_dims] > 0.5f ? 1 : 0;
-  noise[i] = src[5 + 2 * r_dims];
+  const bool kept = !has_pred || (pred >> 32) != (key >> 32);
+  const float* src = cand + static_cast<int64_t>(key & 0xffffffffu) * w;
+  keep[dst] = kept ? 1 : 0;
+  rows[dst] = static_cast<int32_t>(src[0]);
+  for (int k = 0; k < r_dims; ++k) {
+    cap[static_cast<int64_t>(dst) * r_dims + k] = src[1 + k];
+    pool_use[static_cast<int64_t>(dst) * r_dims + k] = src[3 + r_dims + k];
+  }
+  sc[2 * static_cast<int64_t>(dst)] = src[1 + r_dims];
+  sc[2 * static_cast<int64_t>(dst) + 1] = src[2 + r_dims];
+  cnt[dst] = static_cast<int32_t>(src[3 + 2 * r_dims]);
+  ban[dst] = src[4 + 2 * r_dims] > 0.5f ? 1 : 0;
+  noise[dst] = src[5 + 2 * r_dims];
   for (int t = 0; t < n_keys; ++t)
-    elig[static_cast<int64_t>(t) * n_cand + i] =
+    elig[static_cast<int64_t>(t) * n_cand + dst] =
         (kept && src[6 + 2 * r_dims + t] > 0.5f) ? 1 : 0;
 }
 
@@ -377,18 +453,23 @@ int nomad_mesh_pack(const float* capacity, const float* score_cap,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7. usage/out [n_loc, r_dims] (one shard), ring [ring_rows, 1 + r_dims],
-// pos [n_loc] int scratch.
+// K7. usage/out [n_rows, r_dims] (rows row_base.. of the table: one shard,
+// or every shard with row_base 0), ring [ring_rows, 1 + r_dims], pos
+// [n_rows] int scratch holding -1 on entry, left so.
 int nomad_apply_ring(const float* usage, const float* ring, int ring_rows,
-                     int r_dims, int row_base, int n_loc, int32_t* pos,
+                     int r_dims, int row_base, int n_rows, int32_t* pos,
                      float* out, cudaStream_t stream) {
-  if (n_loc > 0) {
-    k7_fill<<<blocks_for(n_loc), kThreads, 0, stream>>>(pos, n_loc);
+  // Refused before the mark pass, so a refusal never leaves marks in pos.
+  if (r_dims < 1 || r_dims * kApplyRows * sizeof(float) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows > 0) {
     if (ring_rows > 0)
       k7_mark<<<blocks_for(ring_rows), kThreads, 0, stream>>>(
-          ring, ring_rows, r_dims, row_base, n_loc, pos);
-    k7_write<<<blocks_for(static_cast<int64_t>(n_loc) * r_dims), kThreads, 0,
-               stream>>>(usage, ring, pos, n_loc, r_dims, out);
+          ring, ring_rows, r_dims, row_base, n_rows, pos);
+    const unsigned int blocks = static_cast<unsigned int>(
+        (static_cast<int64_t>(n_rows) + kApplyRows - 1) / kApplyRows);
+    k7_write<<<blocks, kApplyRows, kApplyRows * r_dims * sizeof(float),
+               stream>>>(usage, ring, pos, n_rows, r_dims, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -420,36 +501,36 @@ int nomad_cold_packet(const float* table, const float* usage,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9. cand [n_cand, w] (the exchanged packets, n_cand = S * T * B), nf_all
-// [S, T] i32, vals_all [S, T, B] f32. gbuf holds next_pow2(n_cand) u64 when
-// that exceeds kSmemSortBytes, else is null. order [n_cand] i32 is scratch.
-int nomad_pool_build(const float* cand, int n_cand, int w,
+// K9. cand [n_seg * b_buf, w] (the exchanged packets: n_seg = S * T
+// segments of b_buf rows), nf_all [S, T] i32, vals_all [S, T, b_buf] f32;
+// skeys [n_seg * next_pow2(b_buf)] u64 is scratch.
+int nomad_pool_build(const float* cand, int n_seg, int b_buf, int w,
                      const int32_t* nf_all, const float* vals_all,
-                     int n_shards, int n_keys, int b_buf, int r_dims,
-                     uint64_t* gbuf, int32_t* order, float* pool_use, uint8_t* keep, float* tau, int32_t* nf0,
+                     int n_shards, int n_keys, int r_dims, uint64_t* skeys,
+                     float* pool_use, uint8_t* keep, float* tau, int32_t* nf0,
                      int32_t* rows, float* cap, float* sc, int32_t* cnt,
                      uint8_t* ban, float* noise, uint8_t* elig,
                      cudaStream_t stream) {
-  if (n_cand < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int n_pow2 = 1;
-  while (n_pow2 < n_cand) n_pow2 <<= 1;
-  const size_t bytes = static_cast<size_t>(n_pow2) * sizeof(uint64_t);
-  size_t smem = 0;
-  if (gbuf == nullptr) {
-    if (bytes > static_cast<size_t>(kSmemSortBytes))
-      return static_cast<int>(cudaErrorInvalidValue);
-    smem = bytes;
+  if (n_seg < 1 || b_buf < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int ld = 1;
+  while (ld < b_buf) ld <<= 1;
+  const int top = ld == b_buf ? ld : ld >> 1;
+  const size_t smem =
+      ld <= kSmemSortKeys ? static_cast<size_t>(ld) * sizeof(uint64_t) : 0;
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         k9_sort, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  k9_sort<<<1, kBlockThreads, smem, stream>>>(cand, n_cand, w, nf_all,
-                                              vals_all, n_shards, n_keys, b_buf,
-                                              gbuf, order, tau, nf0);
-  k9_gather<<<blocks_for(n_cand), kThreads, 0, stream>>>(
-      cand, order, n_cand, w, r_dims, n_keys, pool_use, keep, rows, cap,
-      sc, cnt, ban, noise, elig);
+  const int threads =
+      ld / 2 < 32 ? 32 : (ld / 2 > kBlockThreads ? kBlockThreads : ld / 2);
+  k9_sort<<<n_seg, threads, smem, stream>>>(cand, b_buf, w, ld, nf_all,
+                                            vals_all, n_shards, n_keys, skeys,
+                                            tau, nf0);
+  k9_place<<<blocks_for(static_cast<int64_t>(n_seg) * b_buf), kThreads, 0,
+             stream>>>(cand, skeys, ld, n_seg, b_buf, top, w, r_dims, n_keys,
+                       pool_use, keep, rows, cap, sc, cnt, ban, noise, elig);
   return static_cast<int>(cudaGetLastError());
 }
 

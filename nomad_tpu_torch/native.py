@@ -159,7 +159,7 @@ _SIGNATURES = {
     "nomad_apply_ring": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "nomad_cold_packet": [_P, _P, _P, _L, _P, _F, _I, _I, _I, _I, _I, _I]
     + [_P] * 7 + [_P],
-    "nomad_pool_build": [_P, _I, _I, _P, _P, _I, _I, _I, _I] + [_P] * 13
+    "nomad_pool_build": [_P, _I, _I, _I, _P, _P, _I, _I, _I] + [_P] * 12
     + [_P],
     "nomad_warm_finish": [_P] * 11 + [_I, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I] + [_P] * 4 + [_P],
@@ -196,7 +196,12 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The device's current stream as a raw handle: what
+    `torch.cuda.current_stream(device).cuda_stream` gives, without building
+    a Stream object (a few microseconds of every launch's host time)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(name: str, err: int) -> None:

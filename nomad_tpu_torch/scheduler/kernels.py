@@ -484,9 +484,10 @@ def place_batch_keyed(mesh, capacity, score_cap, usage, tg_masks,
 # (nomad_tpu/scheduler/kernels.py:600-653), on the S logical shards of one
 # card (parallel/mesh.py):
 #
-#   COLD window (chain start / rebuild): per shard, K7 applies the pending
-#     winner ring to the shard's own usage rows and K8 runs one masked score
-#     pass over only those rows and emits the shard's top-B candidate packet
+#   COLD window (chain start / rebuild): K7 applies the pending winner ring
+#     to every shard's usage rows in one call (the shards share the card),
+#     and per shard K8 runs one masked score pass over only the shard's rows
+#     and emits the shard's top-B candidate packet
 #     (B = 2k) with its per-key feasible count and top-B values. The packets
 #     meet on the lead device (the exchange: a same-device copy here, the
 #     failpoint `tensor.mesh.exchange` at its seam), and K9 merges them into
@@ -592,12 +593,16 @@ def mesh_pack(capacity, score_cap, job_counts0, noise, banned0):
 # ---------------------------------------------------------------- K7
 
 
-def apply_ring_plain(usage, ring, row_base: int, out=None):
-    """One shard's usage [n_loc, R] with the pending winner ring [cap, 1+R]
-    applied (reference: _apply_ring). Ring entries carry each window's
-    FINAL usage of the row (row -1 marks an empty entry), so the LAST entry
-    per owned row wins: a scatter-max of ring positions picks it. Writes
-    `out` (a new tensor when None) and returns it."""
+def apply_ring_plain(usage, ring, row_base: int, out=None, pos=None):
+    """Usage rows [row_base, row_base + n) [n, R] with the pending winner
+    ring [cap, 1+R] applied (reference: _apply_ring): one shard's rows, or
+    every shard's with row_base 0, which equals the per-shard applications
+    laid end to end (a ring entry's row belongs to one shard). Ring entries
+    carry each window's FINAL usage of the row (row -1 marks an empty
+    entry), so the LAST entry per owned row wins: a scatter-max of ring
+    positions picks it. Writes `out` (a new tensor when None) and returns
+    it. `pos` is K7's scratch (see apply_ring); the plain version needs
+    none."""
     native.PLAIN_CALLS["apply_ring"] += 1
     n_loc = usage.shape[0]
     row_f = ring[:, 0]
@@ -615,21 +620,28 @@ def apply_ring_plain(usage, ring, row_base: int, out=None):
     return out
 
 
-def apply_ring(usage, ring, row_base: int, out=None):
-    """K7 (csrc/mesh.cu). See apply_ring_plain for the contract."""
-    if not _on_cuda(usage, ring, out):
+def apply_ring(usage, ring, row_base: int, out=None, pos=None):
+    """K7 (csrc/mesh.cu). See apply_ring_plain for the contract. `pos` is
+    the kernel's row -> last ring entry scratch, int32 [n], -1 in every
+    entry; K7 leaves it so (its write pass puts back what its mark pass
+    set), so a caller that keeps one pays no fill (the mesh program keeps
+    one, and no two calls that share it may run at once). None: a new
+    one."""
+    if not _on_cuda(usage, ring, out, pos):
         return apply_ring_plain(usage, ring, row_base, out)
-    n_loc, r = usage.shape
-    _need(usage, torch.float32, (n_loc, r), "usage")
+    n, r = usage.shape
+    _need(usage, torch.float32, (n, r), "usage")
     _need(ring, torch.float32, (ring.shape[0], r + 1), "ring")
     if out is None:
         out = torch.empty_like(usage)
-    _need(out, torch.float32, (n_loc, r), "out")
-    pos = torch.empty(n_loc, dtype=torch.int32, device=usage.device)
-    p = native.ptr
+    _need(out, torch.float32, (n, r), "out")
+    dev = usage.device
+    if pos is None:
+        pos = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    _need(pos, torch.int32, (n,), "pos")
     err = native.library().nomad_apply_ring(
-        p(usage), p(ring), ring.shape[0], r, int(row_base), n_loc, p(pos),
-        p(out), native.stream(usage.device))
+        usage.data_ptr(), ring.data_ptr(), ring.shape[0], r, int(row_base),
+        n, pos.data_ptr(), out.data_ptr(), native.stream(dev))
     native.check("apply_ring", err)
     return out
 
@@ -715,9 +727,6 @@ def cold_packet(table, usage, tg_masks, key_demands, penalty: float,
 
 # ---------------------------------------------------------------- K9
 
-_POOL_SMEM_ROWS = 16384   # K9 sorts in shared memory up to this many rows
-
-
 def pool_build_plain(cand, nf_all, vals_all, key_demands) -> PoolState:
     """The exchanged packets [S*T*B, W] merged into the resident pool
     (reference: pool_build): a stable sort by global row, first-occurrence
@@ -737,7 +746,9 @@ def pool_build_plain(cand, nf_all, vals_all, key_demands) -> PoolState:
 
 
 def pool_build(cand, nf_all, vals_all, key_demands) -> PoolState:
-    """K9 (csrc/mesh.cu). See pool_build_plain for the contract."""
+    """K9 (csrc/mesh.cu). See pool_build_plain for the contract. The
+    packets are S*T segments of B rows (one per shard and key, as the
+    exchange lays them); K9's merge is exact whatever rows they hold."""
     if not _on_cuda(cand, nf_all, vals_all, key_demands):
         return pool_build_plain(cand, nf_all, vals_all, key_demands)
     t, r = key_demands.shape
@@ -747,30 +758,26 @@ def pool_build(cand, nf_all, vals_all, key_demands) -> PoolState:
     _need(nf_all, torch.int32, (s, t), "nf_all")
     _need(vals_all, torch.float32, (s, t, b_buf), "vals_all")
     dev = cand.device
-    n_pow2 = 1 << max(0, (c - 1).bit_length())
-    gbuf = (torch.empty(n_pow2, dtype=torch.int64, device=dev)
-            if n_pow2 > _POOL_SMEM_ROWS else None)
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    def i32(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    def b8(*shape):
-        return torch.empty(shape, dtype=torch.bool, device=dev)
-
-    order = i32(c)
-    out = PoolState(pool_use=f32(c, r), keep=b8(c),
-                    tau=f32(t), nf0=i32(t), rows=i32(c), cap=f32(c, r),
-                    sc=f32(c, 2), cnt=i32(c), ban=b8(c), noise=f32(c),
-                    elig=b8(t, c))
-    p = native.ptr
+    ld = 1 << max(0, (b_buf - 1).bit_length())
+    skeys = torch.empty(s * t * ld, dtype=torch.int64, device=dev)
+    # The outputs as views of one buffer per dtype: the wrapper's host time
+    # is mostly tensor creation, and three allocations cost less than
+    # eleven.
+    pool_use, cap, sc, noise, tau = torch.empty(
+        2 * c * r + 3 * c + t, dtype=torch.float32, device=dev).split(
+            [c * r, c * r, 2 * c, c, t])
+    rows, cnt, nf0 = torch.empty(2 * c + t, dtype=torch.int32,
+                                 device=dev).split([c, c, t])
+    keep, ban, elig = torch.empty((2 + t) * c, dtype=torch.bool,
+                                  device=dev).split([c, c, t * c])
+    out = PoolState(pool_use=pool_use.view(c, r), keep=keep, tau=tau,
+                    nf0=nf0, rows=rows, cap=cap.view(c, r), sc=sc.view(c, 2),
+                    cnt=cnt, ban=ban, noise=noise, elig=elig.view(t, c))
+    # A bool tensor's data_ptr is the bytes the kernel writes.
     err = native.library().nomad_pool_build(
-        p(cand), c, w, p(nf_all), p(vals_all), s, t, b_buf, r, p(gbuf),
-        p(order), p(out.pool_use), p(_u8(out.keep)), p(out.tau),
-        p(out.nf0), p(out.rows), p(out.cap), p(out.sc), p(out.cnt),
-        p(_u8(out.ban)), p(out.noise), p(_u8(out.elig)), native.stream(dev))
+        cand.data_ptr(), s * t, b_buf, w, nf_all.data_ptr(),
+        vals_all.data_ptr(), s, t, r, skeys.data_ptr(),
+        *[x.data_ptr() for x in out], native.stream(dev))
     native.check("pool_build", err)
     return out
 
@@ -906,7 +913,7 @@ class MeshChain:
         return self.usage.shape
 
     def materialize(self) -> torch.Tensor:
-        """Full usage including the pending winner ring (K7 per shard)."""
+        """Full usage including the pending winner ring (one K7 call)."""
         return self.prog.apply_fn(self.usage, self.ring)
 
     def __array__(self, dtype=None, copy=None):
@@ -937,6 +944,7 @@ class _MeshKeyedProgram:
         self._lock = threading.Lock()
         self._tables: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._ring_zero: dict = {}
+        self._ring_pos: dict = {}
 
     # Each stage picks kernels or, for a comparison run, plain versions.
     @staticmethod
@@ -976,27 +984,25 @@ class _MeshKeyedProgram:
     def a_cold(self, table, usage, tg_masks, key_demands, penalty: float,
                distinct: bool, ring):
         """The cold shard-local stage (reference: a_cold under shard_map):
-        per shard, K7 applies the ring to its usage rows (into the new
-        usage tail) and K8 scores only its rows and emits its packet.
-        Returns (packets per shard, usage tail [N, R], nf0 per shard,
-        top-B values per shard); each shard's outputs on its device."""
-        apply_k = self._k(apply_ring, apply_ring_plain)
+        K7 applies the ring to every shard's usage rows in one call (into
+        the new usage tail: the shards share one device, and a ring entry's
+        row belongs to one shard), then per shard K8 scores only its rows
+        of that tail and emits its packet. Returns (packets per shard,
+        usage tail [N, R], nf0 per shard, top-B values per shard); each
+        shard's outputs on its device."""
         cold_k = self._k(cold_packet, cold_packet_plain)
         n = usage.shape[0]
         n_loc = n // self.n_shards
         b_buf = min(_MESH_BUF_MULT * self.k_cand, n_loc)
-        usage_tail = torch.empty_like(usage)
+        usage_tail = self.apply_fn(usage, ring)
         pkts, nfs, vals = [], [], []
         mesh = self.mesh
-        for s, (tab_s, use_s, mask_s, tail_s) in enumerate(zip(
-                node_shards(mesh, table), node_shards(mesh, usage),
-                node_shards(mesh, tg_masks, dim=1),
+        for s, (tab_s, mask_s, tail_s) in enumerate(zip(
+                node_shards(mesh, table), node_shards(mesh, tg_masks, dim=1),
                 node_shards(mesh, usage_tail))):
-            base = s * n_loc
-            apply_k(use_s, ring.to(mesh.devices[s]), base, out=tail_s)
             pkt, nf0, top = cold_k(tab_s, tail_s, mask_s,
                                    key_demands.to(mesh.devices[s]), penalty,
-                                   distinct, base, b_buf)
+                                   distinct, s * n_loc, b_buf)
             pkts.append(pkt)
             nfs.append(nf0)
             vals.append(top)
@@ -1045,15 +1051,20 @@ class _MeshKeyedProgram:
 
     def apply_fn(self, usage, ring) -> torch.Tensor:
         """Every shard's usage with the ring applied, as a new [N, R]
-        tensor (reference: apply_ring_full under shard_map)."""
-        apply_k = self._k(apply_ring, apply_ring_plain)
-        out = torch.empty_like(usage)
-        n_loc = usage.shape[0] // self.n_shards
-        for s, (use_s, out_s) in enumerate(zip(node_shards(self.mesh, usage),
-                                               node_shards(self.mesh, out))):
-            apply_k(use_s, ring.to(self.mesh.devices[s]), s * n_loc,
-                    out=out_s)
-        return out
+        tensor (reference: apply_ring_full under shard_map): one K7 call
+        over all shards' rows, which share the mesh's one device. K7's
+        scratch is the program's, made once per row count; the lock keeps
+        one call's two launches from interleaving with another thread's
+        on the stream, since both would use it."""
+        n = usage.shape[0]
+        with self._lock:
+            pos = self._ring_pos.get(n)
+            if pos is None:
+                pos = torch.full((n,), -1, dtype=torch.int32,
+                                 device=self.device)
+                self._ring_pos[n] = pos
+            return self._k(apply_ring, apply_ring_plain)(
+                usage, ring.to(self.device), 0, pos=pos)
 
 
 @functools.lru_cache(maxsize=16)

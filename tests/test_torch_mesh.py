@@ -17,6 +17,8 @@ the mesh is bit for bit on every output.
 """
 
 import inspect
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -338,6 +340,226 @@ def test_chain_cold_warm_overflow_matches_reference(jax_mesh):
     assert all(float(f) == 0.0 for f in flags if f is not None)
 
 
+# ------------------------------------------ K7 and K9 as the card runs them
+
+
+def _k9_model(cand, nf_all, vals_all, n_keys, r):
+    """K9's algorithm (csrc/mesh.cu k9_sort, k9_place) in numpy. One sort
+    per segment of B packet rows: keys (row ^ sign bit) << 32 | position,
+    padded with ~0 to ld = next_pow2(B), through the bitonic network stage
+    by stage. Then each row's final index is its rank in its own segment
+    plus, per other segment, the count of keys below it (a search by powers
+    of two from the largest power of two <= B); the largest such key over
+    all segments is its predecessor in the merged order, which decides
+    keep. Returns a PoolState of numpy arrays."""
+    s_, _, b = vals_all.shape
+    n_seg = s_ * n_keys
+    ld = 1 << max(0, (b - 1).bit_length())
+    rows = cand[:, 0].astype(np.int32)
+    hi = (rows.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
+    keys = (hi << np.uint64(32)) | np.arange(len(cand), dtype=np.uint64)
+    buf = np.full((n_seg, ld), np.iinfo(np.uint64).max, np.uint64)
+    buf[:, :b] = keys.reshape(n_seg, b)
+    idx = np.arange(ld)
+    k = 2
+    while k <= ld:
+        j = k // 2
+        while j > 0:
+            ixj = idx ^ j
+            lo = idx[ixj > idx]
+            a, c = buf[:, lo], buf[:, lo ^ j]
+            up = (lo & k) == 0
+            swap = (a > c) == up
+            buf[:, lo] = np.where(swap, c, a)
+            buf[:, lo ^ j] = np.where(swap, a, c)
+            j //= 2
+        k *= 2
+    seg = buf[:, :b]
+    assert (seg[:, 1:] > seg[:, :-1]).all()
+    top = ld if ld == b else ld // 2
+    key = seg.reshape(-1)
+    g = np.repeat(np.arange(n_seg), b)
+    jj = np.tile(np.arange(b), n_seg)
+    dst = jj.copy()
+    has_pred = jj > 0
+    pred = np.where(has_pred, seg.reshape(-1)[np.maximum(
+        np.arange(n_seg * b) - 1, 0)], 0).astype(np.uint64)
+    for h in range(n_seg):
+        other = g != h
+        cnt = np.zeros(n_seg * b, np.int64)
+        step = top
+        while step > 0:
+            probe = cnt + step
+            ok = probe <= b
+            hit = ok & (seg[h][np.minimum(probe, b) - 1] < key)
+            cnt = np.where(hit, probe, cnt)
+            step //= 2
+        assert (cnt == np.searchsorted(seg[h], key)).all()
+        take = other & (cnt > 0)
+        dst = np.where(other, dst + cnt, dst)
+        below = seg[h][np.maximum(cnt - 1, 0)]
+        better = take & (~has_pred | (below > pred))
+        pred = np.where(better, below, pred)
+        has_pred |= take
+    assert sorted(dst) == list(range(n_seg * b))
+    kept = ~has_pred | ((pred >> np.uint64(32)) != (key >> np.uint64(32)))
+    src = cand[(key & np.uint64(0xffffffff)).astype(np.int64)]
+    pool = np.empty_like(cand)
+    pool[dst] = src
+    keep = np.empty(n_seg * b, bool)
+    keep[dst] = kept
+    cols = tk.pool_columns(_t(pool), _t(keep), r, n_keys)
+    state = tk.PoolState(
+        pool_use=pool[:, 3 + r:3 + 2 * r], keep=keep,
+        tau=vals_all[:, :, -1].max(axis=0),
+        nf0=nf_all.sum(axis=0).astype(np.int32),
+        **{name: v.numpy() for name, v in cols.items()})
+    return state
+
+
+def _packets(s, t, b, n_loc, seed, overlap=False, r=5):
+    """Exchanged packets [S*T*B, 6+2R+T] as the cold stage lays them: per
+    shard and key a segment of B distinct rows of the shard (so the keys of
+    one shard share rows), in no row order; every packet row's columns
+    differ, so a wrong copy shows. overlap=True draws every shard's rows
+    from one range: duplicates across segments of different shards too."""
+    rng = np.random.default_rng(seed)
+    w = 6 + 2 * r + t
+    cand = rng.uniform(0, 100, (s * t * b, w)).astype(np.float32)
+    for sh in range(s):
+        base = 0 if overlap else sh * n_loc
+        for q in range(t):
+            seg = slice((sh * t + q) * b, (sh * t + q + 1) * b)
+            cand[seg, 0] = base + rng.choice(n_loc, b, replace=False)
+    cand[:, 3 + 2 * r] = rng.integers(0, 4, len(cand))
+    cand[:, 4 + 2 * r] = rng.random(len(cand)) < 0.2
+    cand[:, 6 + 2 * r:] = rng.random((len(cand), t)) < 0.7
+    vals = -np.sort(-rng.uniform(-5, 5, (s, t, b)), axis=2).astype(np.float32)
+    vals[0, 0, -1] = -np.inf
+    nf = rng.integers(0, n_loc + 1, (s, t)).astype(np.int32)
+    return cand, nf, vals, rng.uniform(5, 40, (t, r)).astype(np.float32)
+
+
+# (S, T, B, rows a shard, overlap): T = 3 keys sharing a shard's rows,
+# S = 1, 2, 4, 8, B = 1, B = the shard's rows, B not a power of two, rows
+# repeated across shards, and a segment beyond K9's shared-memory sort
+# (over 16,384 keys, csrc/mesh.cu kSmemSortKeys).
+POOL_CASES = [(8, 3, 48, 64, False), (1, 1, 64, 256, False),
+              (2, 2, 128, 512, False), (4, 1, 256, 1024, False),
+              (8, 1, 2048, 131072, False), (8, 2, 1, 16, False),
+              (4, 3, 256, 256, False), (2, 3, 100, 300, False),
+              (4, 2, 96, 200, True), (2, 1, 32768, 65536, False)]
+
+
+@pytest.mark.parametrize("s,t,b,n_loc,overlap", POOL_CASES)
+def test_pool_build_model_matches_plain_and_reference(jax_mesh, s, t, b,
+                                                      n_loc, overlap):
+    cand, nf, vals, kd = _packets(s, t, b, n_loc, s * 100 + t * 10 + b,
+                                  overlap)
+    model = _k9_model(cand, nf, vals, t, 5)
+    plain = tk.pool_build_plain(_t(cand), _t(nf), _t(vals), _t(kd))
+    for name in tk.PoolState._fields:
+        np.testing.assert_array_equal(getattr(model, name),
+                                      getattr(plain, name).numpy(),
+                                      err_msg=name)
+    mesh = jparallel.scheduling_mesh(jax.devices()[:s])
+    ref = jk._mesh_keyed_program(mesh, max(1, b // 2)).pool_build(
+        cand, nf, vals, kd)
+    for name, a in zip(("pool_use", "keep", "tau", "nf0"), ref[1:]):
+        np.testing.assert_array_equal(np.asarray(a), getattr(model, name),
+                                      err_msg=name)
+    cols = tk.pool_columns(_t(np.asarray(ref[0])), _t(np.asarray(ref[2])),
+                           5, t)
+    for name, want in cols.items():
+        np.testing.assert_array_equal(want.numpy(), getattr(model, name),
+                                      err_msg=name)
+    # One kept copy per distinct row; more rows than a shard has make
+    # copies.
+    assert model.keep.sum() == len(np.unique(cand[:, 0]))
+    if t * b > n_loc or overlap:
+        assert model.keep.sum() < len(cand)
+
+
+def _k7_model(usage, ring, row_base, pos):
+    """K7's two passes (csrc/mesh.cu k7_mark, k7_write) in numpy over the
+    int scratch `pos` (-1 in every entry on entry, checked so on exit)."""
+    n = usage.shape[0]
+    assert (pos == -1).all()
+    for i, rf in enumerate(ring[:, 0]):
+        if rf >= 0 and 0 <= int(rf) - row_base < n:
+            pos[int(rf) - row_base] = max(pos[int(rf) - row_base], i)
+    out = usage.copy()
+    marked = pos >= 0
+    out[marked] = ring[pos[marked], 1:]
+    pos[marked] = -1
+    return out
+
+
+def _ring_case(kind, cap, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "empty":
+        return np.full((cap, 6), -1.0, np.float32)
+    if kind == "repeats":
+        ring = _ring(cap, n, seed, cap * 3 // 4)
+        ring[cap // 2:cap // 2 + 64, 0] = ring[:64, 0]   # later writes win
+        return ring
+    if kind == "holes":
+        ring = _ring(cap, n, seed, cap)
+        ring[rng.random(cap) < 0.3, 0] = -1.0
+        return ring
+    # "every_shard": each shard's first and last rows, and a full ring of
+    # rows drawn from fewer rows than it has entries (65,536 entries over
+    # 16,384 rows in "outnumbers").
+    ring = _ring(cap, n, seed, cap)
+    n_loc = n // SHARDS
+    edges = np.array([[sh * n_loc, sh * n_loc + n_loc - 1]
+                      for sh in range(SHARDS)]).reshape(-1)
+    ring[-len(edges):, 0] = edges
+    return ring
+
+
+# (kind, usage rows, ring rows); "outnumbers" is mesh-served's shape.
+RING_CASES = [("repeats", 2048, 1024), ("holes", 2048, 1024),
+              ("every_shard", 2048, 1024), ("empty", 2048, 1024),
+              ("outnumbers", 16384, 65536)]
+
+
+@pytest.mark.parametrize("kind,n,cap", RING_CASES)
+def test_all_shard_ring_apply_matches_per_shard_and_reference(
+        jax_mesh, kind, n, cap):
+    """One apply over every shard's rows (row_base 0), as the cold stage
+    and apply_fn now call K7, equals the per-shard applications laid end to
+    end, the reference's apply_ring_full under shard_map, and K7's model."""
+    rng = np.random.default_rng(n + cap)
+    usage = rng.uniform(0, 300, (n, 5)).astype(np.float32)
+    ring = _ring_case(kind, cap, n, n + cap)
+    n_loc = n // SHARDS
+    whole = tk.apply_ring_plain(_t(usage), _t(ring), 0).numpy()
+    per = np.concatenate([
+        tk.apply_ring_plain(_t(usage[sh * n_loc:(sh + 1) * n_loc]), _t(ring),
+                            sh * n_loc).numpy() for sh in range(SHARDS)])
+    np.testing.assert_array_equal(whole, per)
+    j = jk._mesh_keyed_program(jax_mesh, 64)
+    ref = j.apply_fn(jax.device_put(usage, j.node_sharding),
+                     jax.device_put(ring, j.rep_sharding))
+    np.testing.assert_array_equal(np.asarray(ref), whole)
+    pos = np.full(n, -1, np.int64)
+    np.testing.assert_array_equal(_k7_model(usage, ring, 0, pos), whole)
+    assert (pos == -1).all()
+    # The port's mesh program makes that one call.
+    before = native.PLAIN_CALLS["apply_ring"]
+    got = tk._mesh_keyed_program(_tmesh(), 64).apply_fn(_t(usage), _t(ring))
+    assert native.PLAIN_CALLS["apply_ring"] == before + 1
+    np.testing.assert_array_equal(got.numpy(), whole)
+    if kind == "repeats":
+        row = int(ring[0, 0])
+        last = np.nonzero(ring[:, 0] == row)[0][-1]
+        np.testing.assert_array_equal(whole[row], ring[last, 1:])
+        assert last >= cap // 2
+    if kind == "empty":
+        np.testing.assert_array_equal(whole, usage)
+
+
 # ------------------------------- tests/test_mesh_keyed_equivalence.py cases
 
 
@@ -479,13 +701,15 @@ def test_collective_audit_exchange_bytes_match_reference(jax_mesh):
     assert ref["exchange_bytes"] == got["exchange_bytes"] == 172_096
     for stage in ("cold", "pool_build", "warm", "apply"):
         assert ref[stage] == got[stage] == 0
+    # One K7 call per stage covers every shard (they share one device);
+    # K8 runs once per shard.
     launches = got["launches"]
-    assert launches["cold"] == {"mesh_pack": 1, "apply_ring": 4,
+    assert launches["cold"] == {"mesh_pack": 1, "apply_ring": 1,
                                 "cold_packet": 4}
     assert launches["pool_build"] == {"pool_build": 1}
     assert launches["warm"] == {"score_topk": 1, "merge_candidates": 1,
                                 "placement_chain": 1, "warm_finish": 1}
-    assert launches["apply"] == {"apply_ring": 4}
+    assert launches["apply"] == {"apply_ring": 1}
 
 
 def test_place_batch_sharded_matches_reference():
@@ -772,3 +996,80 @@ def test_mesh_chain_matches_single_device_on_card(cuda_device):
         u1, um = r1.usage_after, rm.usage_after
     assert _bits(u1, um.materialize())
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,t,b,n_loc,overlap", POOL_CASES)
+def test_pool_build_matches_plain_and_model_on_card(cuda_device, s, t, b,
+                                                    n_loc, overlap):
+    arrs = _packets(s, t, b, n_loc, s * 100 + t * 10 + b, overlap)
+    args = tuple(torch.tensor(a, device=cuda_device) for a in arrs)
+    got = tk.pool_build(*args)
+    assert all(_bits(a, b) for a, b in zip(got,
+                                           tk.pool_build_plain(*args)))
+    model = _k9_model(*arrs[:3], t, 5)
+    for name in tk.PoolState._fields:
+        np.testing.assert_array_equal(getattr(model, name),
+                                      getattr(got, name).cpu().numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n,cap",
+                         RING_CASES + [("outnumbers", 1 << 20, 65536)])
+def test_all_shard_ring_apply_matches_plain_on_card(cuda_device, kind, n,
+                                                    cap):
+    rng = np.random.default_rng(n + cap)
+    usage = torch.tensor(rng.uniform(0, 300, (n, 5)).astype(np.float32),
+                         device=cuda_device)
+    ring = torch.tensor(_ring_case(kind, cap, n, n + cap),
+                        device=cuda_device)
+    n_loc = n // SHARDS
+    per = torch.cat([tk.apply_ring_plain(usage[q * n_loc:(q + 1) * n_loc],
+                                         ring, q * n_loc)
+                     for q in range(SHARDS)])
+    prog = tk._mesh_keyed_program(scheduling_mesh([cuda_device] * SHARDS),
+                                  64)
+    # The program's scratch twice: the first call must leave it at -1.
+    assert _bits(prog.apply_fn(usage, ring), per)
+    assert _bits(prog.apply_fn(usage, ring), per)
+    assert _bits(tk.apply_ring(usage, ring, 0), per)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_apply_fn_threads_share_the_scratch_on_card(cuda_device):
+    """Threads applying different rings through one program share its K7
+    scratch: each call's mark and write launches must not interleave with
+    another's."""
+    n, cap, workers = 1 << 16, 4096, 8
+    prog = tk._mesh_keyed_program(scheduling_mesh([cuda_device] * SHARDS),
+                                  64)
+    cases = []
+    for i in range(workers):
+        rng = np.random.default_rng(i)
+        usage = torch.tensor(rng.uniform(0, 300, (n, 5)).astype(np.float32),
+                             device=cuda_device)
+        ring = torch.tensor(_ring_case("holes", cap, n, i), device=cuda_device)
+        cases.append((usage, ring, tk.apply_ring_plain(usage, ring, 0)))
+    bad = []
+
+    def work(i):
+        usage, ring, want = cases[i]
+        for _ in range(30):
+            if not _bits(prog.apply_fn(usage, ring), want):
+                bad.append(i)
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(workers)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert not bad
