@@ -70,9 +70,10 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            one K7 call and one K8 per shard per cold window); K2 on the
            whole 1,048,576-row table against its plain version and
            torch.topk; torch.topk and torch.sort as K8's and K9's
-           yardsticks; last, K7's, K9's and torch.sort's host time and
-           device-only time a call (torch.profiler), taken after every
-           event time because a profiler run slows later launches.
+           yardsticks; K10 at the mesh-served storm's shape (a 16,384-row
+           pool, a 65,536-row ring, 4,096 steps) and at edge cases (a
+           failed certificate, a delta clamped at the ring's end, three
+           keys, a ring of no round size, a one-row ring), bit for bit.
   mesh-served-identity
            the served path's window on the mesh at full width: the dev
            server of served-identity with its table on S = 8 logical
@@ -82,7 +83,13 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            the kernels and once inside `native.plain_versions()`. Both must
            commit the same placements, usage and certificate flags; K2-K5
            and K6-K10 must launch in the kernel run and no plain version
-           may run there.
+           may run there. Then a fleet whose warm windows fail their
+           certificate (2,000 nodes, shard 0's 256 rows half reserved,
+           windows of 4 evals: B = 128 below a shard's 256 rows), driven
+           through the worker's own drain and build stages, which nack a
+           failed window and re-run it cold: kernels, plain versions and
+           one device must commit the same placements and usage, and the
+           kernel and plain runs raise the same flags, at least one 1.
   mesh-served
            the served storm of the `served` phase (10,000 nodes, window
            64, Count = 50, 600 evals) on a dev server whose table is on
@@ -91,6 +98,11 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            same (job, alloc name -> node) set and the same usage; every
            window on the mesh, at least one warm, no fallback, and K6-K10
            launched. Untraced evals/s, then a traced storm's idle share.
+
+Last, every kernel's device-only time a call (torch.profiler's CUDA
+activity) beside its event time and its host time a call, at the shapes
+the phases gave it, and torch.sort(stable=True) of K3's rows: taken after
+every event time, because a profiler session slows later launches.
 
 --package-root DIR drives the nomad_tpu_torch package found in DIR (an
 unpacked earlier commit, say) with this script's phases, so two commits'
@@ -113,6 +125,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -201,12 +214,14 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 def device_ms(torch, fn, reps: int):
-    """Device-only time of fn per call, and its device activities (kernels,
-    copies, fills) per call: torch.profiler's CUDA activity over reps calls
-    after one warm-up call, summed and divided by reps. Unlike time_ms it
-    leaves out the host's time between launches. Also the device time a
-    call by kernel name. (None, 0, {}) when the trace holds no device
-    time."""
+    """Device-only time of fn per call, the device activities (kernels,
+    copies, fills) the trace caught per call, and the device time a call
+    by kernel name: torch.profiler's CUDA activity over reps calls after
+    one warm-up call. Unlike time_ms it leaves out the host's time between
+    launches. A trace can miss a run's first launches, so each name's time
+    a call is its mean over the activities caught times the activities it
+    has a call (at least one), not its sum over reps. (None, 0, {}) when
+    the trace holds no device time."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -214,21 +229,50 @@ def device_ms(torch, fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, count, by_name = 0.0, 0, {}
+    total_ms, count, by_name = 0.0, 0, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
-        if us:
-            total_us += us
+        if us and ev.count:
+            ms = us / ev.count * max(1, round(ev.count / reps)) / 1e3
+            total_ms += ms
             count += ev.count
             name = ev.key.replace("(anonymous namespace)::", "").replace(
                 "void ", "").split("(")[0].split("<")[0].split("::")[-1]
             name = name.strip()[:40]
-            by_name[name] = by_name.get(name, 0.0) + us / 1e3 / reps
-    if total_us == 0:
+            by_name[name] = by_name.get(name, 0.0) + ms
+    if total_ms == 0:
         return None, 0, {}
-    return total_us / 1e3 / reps, count / reps, by_name
+    return total_ms, count / reps, by_name
+
+
+# Device-only measurements, queued by the phases and taken last in the
+# process (a torch.profiler session slows every launch after it): (what,
+# events ms, fn, reps).
+DEVICE_ONLY = []
+
+
+def device_only_phase(torch):
+    """For every queued call: its host time a call (back-to-back calls
+    without a sync), then its device-only time a call (device_ms), beside
+    its event time."""
+    host = []
+    for _, _, fn, reps in DEVICE_ONLY:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / reps)
+        torch.cuda.synchronize()
+    for (what, ev_ms, fn, reps), host_ms in zip(DEVICE_ONLY, host):
+        dev_ms, acts, by_name = device_ms(torch, fn, reps)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"phase device-only {what}: {_fmt(ev_ms)} ms by events, "
+              f"{_fmt(dev_ms)} ms on the device ({acts:g} device activities "
+              f"a call: " + ", ".join(f"{k} {v:.4f}" for k, v in top)
+              + f"), {host_ms:.4f} ms of host time a call", flush=True)
+    DEVICE_ONLY.clear()
 
 
 def bound(nbytes: float, ops: float):
@@ -451,10 +495,26 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
             # masked scores (its tie order is not the contract: time only).
             topk_ms = time_ms(torch, lambda: torch.topk(m_k, kc, dim=1,
                                                         sorted=True), reps)
+            # K3's: a stable sort of the candidate rows (the order K3
+            # gives; time only, it makes no keep mask).
+            flat = c_k.reshape(-1)
+            sort_ms = time_ms(torch, lambda: torch.sort(flat, stable=True),
+                              50)
+            DEVICE_ONLY.extend([
+                (f"score_topk at the {label} (T={t}, N={n}, K={k_cand})",
+                 ms["score_topk"][0], lambda: K.score_topk(*args), 50),
+                (f"placement_chain at the {label} (P={p})",
+                 ms["placement_chain"][0],
+                 lambda: K.placement_chain(*chain_args, **chain_kw), 5),
+                (f"merge_candidates at the {label} (T={t}, "
+                 f"{c_k.numel()} candidates)", ms["merge_candidates"][0],
+                 lambda: K.merge_candidates(c_k, m_k, k_cand), 50),
+                (f"torch.sort(stable=True) of K3's {c_k.numel()} rows",
+                 sort_ms, lambda: torch.sort(flat, stable=True), 50)])
             for name, nb, ops, err, lib in (
                     ("score_topk", b2, t * n * (3 * r + 20), err2, topk_ms),
                     ("merge_candidates", b3, c * np.log2(max(c, 2)), 0.0,
-                     None),
+                     sort_ms),
                     ("placement_chain", b4, ops4, err4, None)):
                 bms, by = bound(nb, ops)
                 table[name] = dict(max_abs_err=err, ms=ms[name][0],
@@ -465,7 +525,9 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
                   f"{table['merge_candidates']['bound_ms']:.6f}, K4a "
                   f"{table['placement_chain']['bound_ms']:.6f} "
                   f"({table['placement_chain']['bound_by']}); torch.topk "
-                  f"(k={kc}) {topk_ms:.4f} ms", flush=True)
+                  f"(k={kc}) {topk_ms:.4f} ms; torch.sort(stable=True) of "
+                  f"the {c_k.numel()} candidate rows {sort_ms:.4f} ms",
+                  flush=True)
 
     # The served storm's window (64 evals of one task group, 50 placements
     # padded to 64: K = 4,096, T = 1, 4,096 steps, a reset every 64) on the
@@ -568,6 +630,9 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
             table["scatter_refresh"] = dict(
                 max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                 bound_by=by, library_ms=l_ms)
+            DEVICE_ONLY.append((
+                f"scatter_refresh at {size} rows", k_ms,
+                lambda a=a, pk=pk: NT.scatter_refresh(*a, pk), 50))
 
     # K5 at the served window's shapes: a 64-eval storm window of 64 padded
     # placements (the main path), a 16-eval window, and a 64-eval window of
@@ -593,6 +658,9 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
             table["compact_window"] = dict(
                 max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                 bound_by=by, library_ms=None)
+            DEVICE_ONLY.append((
+                f"compact_window at E={e} P={p}", k_ms,
+                lambda args=args: K.compact_window(*args), 200))
     return table
 
 
@@ -1251,6 +1319,165 @@ def mesh_served_identity_phase(torch, gpu: str, dev):
           f"flags {kern['flags']}; wall kernel/plain {kern['wall']:.3f}/"
           f"{plain['wall']:.3f} s; launches {kern['launches']}; plain calls "
           f"{plain['plain_calls']}", flush=True)
+    cert_miss_case(torch, gpu, mesh)
+
+
+# The certificate-miss case of mesh-served-identity: a fleet of 2,000 nodes
+# (2,048 rows, 256 a logical shard) whose first 256 nodes, shard 0's rows,
+# are half reserved and so score above every other row; windows of 4 evals
+# of 16 placements (k = 64, B = 128: the pool is a true subset of every
+# shard) whose CPU 1,500 fills a hot node with one placement. A cold window
+# puts shard 0's 128th score as tau, with 127 pool rows above it, and fills
+# 64 of them; the warm window after it finds 63 < k above tau and the pool
+# short of the table's feasible rows: its certificate fails.
+CERT_NODES = 2000
+CERT_HOT = 256
+CERT_WINDOW = 4
+CERT_PER_EVAL = 16
+CERT_WINDOWS = 6
+
+
+def cert_workload():
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import compute_node_class
+
+    nodes = []
+    for i in range(CERT_NODES):
+        node = mock.node()
+        if i < CERT_HOT:
+            node.Reserved.CPU = 2100
+        compute_node_class(node)
+        nodes.append(node)
+    jobs = []
+    for _ in range(CERT_WINDOW * CERT_WINDOWS):
+        job = make_job()
+        job.TaskGroups[0].Count = CERT_PER_EVAL
+        job.TaskGroups[0].Tasks[0].Resources.CPU = 1500
+        jobs.append(job)
+    return nodes, jobs
+
+
+def run_cert_miss(torch, nodes, jobs, plain: bool, mesh=None):
+    """A dev server and a pipelined worker driven through the worker's own
+    drain and build stages (`_drain_loop`, `_build_loop`), CERT_WINDOW
+    evals a window. On a mesh two windows are dispatched back to back (the
+    first cold: the pipeline had drained; the second warm), so a warm
+    window's failed certificate fails its drain, and the build stage nacks
+    its evals and taints the chain, as a live worker does; the broker hands
+    them out again in their order, and they lead the next pair, cold. Each
+    eval is nacked at most once, and every committed window is exact, so
+    the placements equal one device's window by window."""
+    from nomad_tpu_torch import native
+    from nomad_tpu_torch.server.pipelined_worker import (
+        _MESH_FLAGS, PipelinedWorker)
+
+    srv = _new_server(torch, nodes, num_schedulers=0, device="cuda",
+                      mesh=mesh)
+    log = logging.getLogger("nomad.worker.pipelined")
+    level = log.level
+    try:
+        w = PipelinedWorker(srv.raft, srv.eval_broker, srv.plan_queue,
+                            srv.blocked_evals, srv.tindex,
+                            ["service", "batch", "system"],
+                            window=CERT_WINDOW)
+        plain_ctx = (native.plain_versions() if plain
+                     else contextlib.nullcontext())
+        depth = 1 if mesh is None else 2
+        flags, n_windows, nacked = [], 0, 0
+        # The drain failure of a missed certificate is logged with its
+        # traceback by the worker; it is this case's expected path.
+        log.setLevel(logging.CRITICAL)
+        native.reset_counts()
+        with plain_ctx:
+            for j in jobs:
+                srv.job_register(j.copy())
+            for _ in range(4 * CERT_WINDOWS):
+                works = []
+                while (len(works) < depth
+                       and srv.eval_broker.stats.TotalReady > 0):
+                    batch = w._dequeue_window()
+                    batch.sort(key=lambda pair: pair[0].JobID)
+                    n_windows += 1
+                    work = w._dispatch_window(batch)
+                    check(work is not None and len(work.fast) == len(batch),
+                          "cert-miss: not every eval took the fast path")
+                    works.append(work)
+                if not works:
+                    break
+                stages = [threading.Thread(target=w._drain_loop),
+                          threading.Thread(target=w._build_loop)]
+                for th in stages:
+                    th.start()
+                for work in works + [None]:
+                    w._drain_q.put(work)
+                for th in stages:
+                    th.join(timeout=300)
+                check(not any(th.is_alive() for th in stages),
+                      "cert-miss: the worker's stages never finished")
+                for work in works:
+                    fl = work.drain.fetches.get(_MESH_FLAGS)
+                    flags.append(fl[0].numpy().tolist() if fl is not None
+                                 else [])
+                    nacked += len(work.fast) if work.failed else 0
+            _sync(torch, "cuda")
+        launches, plain_calls = dict(native.LAUNCHES), dict(native.PLAIN_CALLS)
+        live = {(a.JobID, a.Name): a.NodeID for a in srv.state.allocs()
+                if not a.terminal_status()}
+        statuses = {e.Status for e in srv.state.evals()}
+        usage = _usage_checks(torch, srv, "cert-miss")
+        return dict(live=live, statuses=statuses, usage=usage, flags=flags,
+                    windows=n_windows, nacked=nacked, stats=dict(w.stats),
+                    launches=launches, plain_calls=plain_calls)
+    finally:
+        log.setLevel(level)
+        srv.shutdown()
+
+
+def cert_miss_case(torch, gpu: str, mesh):
+    """The certificate-miss case on the mesh, kernels and plain versions,
+    against one device."""
+    from nomad_tpu_torch.scheduler import stack as stack_mod
+
+    nodes, jobs = cert_workload()
+    noise_fn = stack_mod.make_noise_vec
+    stack_mod.make_noise_vec = _fixed_noise
+    try:
+        kern = run_cert_miss(torch, nodes, jobs, False, mesh)
+        plain = run_cert_miss(torch, nodes, jobs, True, mesh)
+        one = run_cert_miss(torch, nodes, jobs, False)
+    finally:
+        stack_mod.make_noise_vec = noise_fn
+    want = len(jobs) * CERT_PER_EVAL
+    for run, name in ((kern, "kernel"), (plain, "plain"), (one, "one device")):
+        check(len(run["live"]) == want and run["statuses"] == {"complete"},
+              f"cert-miss {name} run: {len(run['live'])} live allocs, want "
+              f"{want}; eval statuses {run['statuses']}")
+    misses = kern["stats"]["mesh_cert_miss"]
+    check(misses > 0 and kern["flags"] == plain["flags"]
+          and misses == sum(f == [1.0] for f in kern["flags"])
+          and plain["stats"]["mesh_cert_miss"] == misses,
+          f"cert-miss: flags kernel {kern['flags']}, plain {plain['flags']}, "
+          f"misses {misses}")
+    check(any(f == [0.0] for f in kern["flags"]),
+          f"cert-miss: no warm window held its certificate {kern['flags']}")
+    check(kern["live"] == plain["live"] == one["live"],
+          "cert-miss: kernel, plain and one-device runs placed differently")
+    check(np.array_equal(kern["usage"], plain["usage"])
+          and np.array_equal(kern["usage"], one["usage"]),
+          "cert-miss: committed usage differs between the runs")
+    print(f"phase mesh-served-identity cert-miss on {gpu}: {len(jobs)} evals "
+          f"in windows of {CERT_WINDOW} on a {CERT_NODES}-node fleet "
+          f"({CERT_HOT} hot rows), {MESH_SHARDS} logical shards; "
+          f"{kern['windows']} windows dispatched, certificate misses "
+          f"{misses} ({kern['nacked']} evals nacked and re-run cold); flags "
+          f"{kern['flags']}; kernel, plain and one-device runs hold the same "
+          f"{want} allocs on the same nodes with identical usage; launches "
+          f"{kern['launches']}", flush=True)
+    check(kern["launches"]["warm_finish"] > 0
+          and not any(kern["plain_calls"].values())
+          and not any(plain["launches"].values()),
+          f"cert-miss: kernel launches {kern['launches']}, plain calls "
+          f"{kern['plain_calls']}; plain run launches {plain['launches']}")
 
 
 def _storm_runner(srv):
@@ -1486,6 +1713,57 @@ def pool_packets(torch, dev, s, t, b, n_loc, overlap, r=5):
     return tuple(torch.tensor(a, device=dev) for a in (cand, nf, vals, kd))
 
 
+# K10's cases: (seed, pool rows C, keys T, steps P, ring rows, ring_n,
+# distinct, flag). The first is the mesh-served storm's shape.
+WARM_FINISH_CASES = [(101, 16384, 1, 4096, 65536, 8192, False, 0),
+                     (102, 16384, 1, 4096, 65536, 65500, False, 1),
+                     (103, 5003, 3, 777, 12437, -5, True, 1),
+                     (104, 1, 2, 1, 1, 0, False, 0)]
+
+
+def warm_finish_case(torch, dev, seed, c, t, p, ring_rows, ring_n, distinct,
+                     flag, r=5):
+    """warm_finish's arguments made from a seed: a pool of c rows (global
+    rows ascending, as K9 lays them), t keys, p steps of which a tenth found
+    no row, a full ring, the delta at ring_n. flag=0 certifies every key
+    (tau below the scores); flag=1 fails the last key's certificate (tau
+    above every score of the pool, n_fin below nf0)."""
+    rng = np.random.default_rng(seed)
+    masked0 = rng.uniform(0, 18, (t, c)).astype(np.float32)
+    masked0[rng.random((t, c)) < 0.3] = -np.inf
+    tau = np.full(t, 0.5, np.float32)
+    k_sel = min(4096, c)
+    n_fin = rng.integers(0, c + 1, t).astype(np.int32)
+    nf0 = (n_fin + rng.integers(1, 1000, t)).astype(np.int32)
+    # A key too few of whose scores beat tau is certified by its pool
+    # holding every feasible row.
+    short = (masked0 > tau[:, None]).sum(axis=1) < k_sel
+    nf0[short] = n_fin[short]
+    if flag:
+        tau[-1] = 18.0
+        nf0[-1] = n_fin[-1] + 1
+    loc = rng.integers(0, c, p).astype(np.float32)
+    loc[rng.random(p) < 0.1] = -1.0
+    packed_loc = np.stack([loc, rng.uniform(0, 18, p).astype(np.float32),
+                           rng.integers(0, c, p).astype(np.float32)], axis=1)
+    n_sel = max(1, min(c, 4096))
+    win = rng.integers(0, n_sel, p).astype(np.int32)
+    c_use = rng.uniform(0, 4000, (n_sel, r)).astype(np.float32)
+    pool_rows = np.sort(rng.choice(max(4 * c, 16), c, replace=False)).astype(
+        np.int32)
+    cap = rng.uniform(1000, 4000, (c, r)).astype(np.float32)
+    use2 = rng.uniform(0, 4000, (c, r)).astype(np.float32)
+    elig = rng.random((t, c)) < 0.8
+    ban = rng.random(c) < 0.1
+    kd = rng.uniform(5, 40, (t, r)).astype(np.float32)
+    ring = rng.uniform(0, 500, (ring_rows, r + 1)).astype(np.float32)
+    ring[:, 0] = rng.integers(-1, 4 * c, ring_rows)
+    tt = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    return (tt(masked0), tt(n_fin), tt(packed_loc), tt(win), tt(c_use),
+            tt(pool_rows), tt(cap), tt(use2), tt(elig), tt(ban), tt(kd),
+            bool(distinct), tt(tau), tt(nf0), tt(ring), int(ring_n), k_sel)
+
+
 def mesh_inputs(torch, dev):
     """bench_mesh_1m's data (bench.py _mesh_child, seed 1): MESH_ROWS rows,
     one key, P = MESH_P steps with MESH_VALID valid, a reset every 64."""
@@ -1598,6 +1876,8 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
         "mesh_pack", K.mesh_pack, K.mesh_pack_plain, pack, 50, 20,
         n * (4 * r + 8 + 4 + 4 + 1) + n * (r + 5) * 4, 0,
         library=lambda: torch.cat(cols, dim=1))[0]
+    DEVICE_ONLY.append((f"mesh_pack at {n} rows", table["mesh_pack"]["ms"],
+                        lambda: K.mesh_pack(*pack), 50))
     # K7 over every shard's rows in one call (row_base 0, as a_cold and
     # apply_fn call it) against the per-shard plain versions laid end to
     # end: the final chain's ring (5 windows of winners), then 65,536-row
@@ -1633,12 +1913,10 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
     stage("apply_ring", prog.apply_fn,
           lambda u, rg: K.apply_ring_plain(u, rg, 0), (last.usage, ring),
           50, 10, 2 * n * r * 4 + ring_rows * (r + 1) * 4, 0)
-    # Device-only times come last: a profiler run slows the launches
-    # that follow it, so no event time is taken after one.
-    device_only = [(f"apply_ring over {n} rows, ring {ring_rows} rows, as "
-                    f"a cold window applies it",
-                    table["apply_ring"]["ms"],
-                    lambda: prog.apply_fn(last.usage, ring), 50)]
+    DEVICE_ONLY.append((f"apply_ring over {n} rows, ring {ring_rows} rows, "
+                        f"as a cold window applies it",
+                        table["apply_ring"]["ms"],
+                        lambda: prog.apply_fn(last.usage, ring), 50))
     # K8 on every shard of the cold window's input (the start usage).
     mask_s = [d["tg_masks"][:, s * n_loc:(s + 1) * n_loc]
               for s in range(MESH_SHARDS)]
@@ -1690,12 +1968,12 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
                  nbytes(*ex) + c * (r * 4 + 1 + 4 + r * 4 + 8 + 4 + 1 + 4
                                     + t), c * np.log2(c) ** 2 / 2,
                  library=lambda: torch.sort(pool_keys))
-    device_only += [
+    DEVICE_ONLY.extend([
         (f"pool_build at {c} packet rows", table["pool_build"]["ms"],
          lambda: K.pool_build(*ex, d["key_demands"]), 20),
         (f"torch.sort of pool_build's {c} keys",
          table["pool_build"]["library_ms"], lambda: torch.sort(pool_keys),
-         20)]
+         20)])
     pool = K.PoolState(*pool)
     # K10 on the last window's warm step: its K2, K3 and K4a outputs.
     prev = chain[-2].usage_after
@@ -1704,6 +1982,10 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
         prev.pool.cnt, d["key_demands"], prev.pool.noise, 10.0, False,
         prev.pool.ban, k_cand)
     sel, keep = K.merge_candidates(cand, masked0, k_cand)
+    sel_p, keep_p = K.merge_candidates_plain(cand, masked0, k_cand)
+    check(torch.equal(sel, sel_p) and torch.equal(keep, keep_p),
+          f"mesh merge_candidates over the {masked0.shape[1]}-row pool: "
+          f"kernel and plain differ")
     packed_loc, pool_use2, win, c_use = K.placement_chain(
         prev.pool.cap, prev.pool.sc, prev.pool_use, prev.pool.elig,
         prev.pool.cnt, d["key_demands"], d["tg_ids"], d["valid"],
@@ -1723,6 +2005,36 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
     check(_bits_equal(torch, fin[0], chain[-1].packed)
           and _bits_equal(torch, fin[2], last.ring),
           "mesh warm_finish: the standalone stage differs from the chain")
+    DEVICE_ONLY.append((
+        f"warm_finish at the 1M-row chain's warm step (pool "
+        f"{masked0.shape[1]} rows, ring {prev.ring.shape[0]} rows, P="
+        f"{packed_loc.shape[0]})", table["warm_finish"]["ms"],
+        lambda: K.warm_finish(*fin_args), 50))
+    # K10 at the mesh-served storm's shape (a 16,384-row pool, a
+    # 65,536-row ring, 4,096 steps) and at edge shapes, on inputs made
+    # from a seed: a certified window, a failed certificate with the delta
+    # clamped at the ring's end, three keys with one uncertified, a pool
+    # and a ring of no round size, distinct_hosts on, a one-row ring. The
+    # served shape's numbers are the kernels line's.
+    for case in WARM_FINISH_CASES:
+        args = warm_finish_case(torch, dev, *case)
+        got, ref = K.warm_finish(*args), K.warm_finish_plain(*args)
+        check(all(_bits_equal(torch, a, b) for a, b in zip(got, ref)),
+              f"mesh warm_finish {case}: kernel and plain differ")
+        check(float(got[3]) == float(case[-1]),
+              f"mesh warm_finish {case}: flag {float(got[3])}")
+    print(f"phase mesh warm_finish: identical to plain bit for bit on "
+          f"{len(WARM_FINISH_CASES)} cases (seed, C, T, P, ring rows, "
+          f"ring_n, distinct, flag) {WARM_FINISH_CASES}", flush=True)
+    served_fin = warm_finish_case(torch, dev, *WARM_FINISH_CASES[0])
+    stage("warm_finish", K.warm_finish, K.warm_finish_plain, served_fin, 50,
+          10, nbytes(*[a for a in served_fin if isinstance(a, torch.Tensor)])
+          + nbytes(*K.warm_finish_plain(*served_fin)),
+          served_fin[0].numel() * (1 + 2 * r))
+    DEVICE_ONLY.append((
+        "warm_finish at the mesh-served shape (pool 16384 rows, ring 65536 "
+        "rows, P=4096)", table["warm_finish"]["ms"],
+        lambda: K.warm_finish(*served_fin), 50))
     check(pool.rows.shape[0] == MESH_SHARDS * t * b_buf,
           f"mesh: pool of {pool.rows.shape[0]} rows")
 
@@ -1792,6 +2104,8 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
     check(all(_bits_equal(torch, a, b) for a, b in zip(got, ref)),
           "mesh place_batch_sharded: differs from K4a's plain scan")
     sh_ms = time_ms(torch, lambda: place_batch_sharded(mesh, *sh_args), 20)
+    DEVICE_ONLY.append(("place_batch_sharded at 16384 rows, P=64", sh_ms,
+                        lambda: place_batch_sharded(mesh, *sh_args), 20))
     sh_plain = time_ms(torch, lambda: K.placement_chain_plain(*sh_args), 2)
     # Inputs once, packed and the usage copy out; P steps of one pass over
     # the table.
@@ -1820,14 +2134,6 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
           f"{['%.4f' % x for x in t_one]}, mesh again "
           f"{['%.4f' % x for x in t_mesh2]}", flush=True)
     print(f"phase mesh: launches per window {per_window}", flush=True)
-    host = []
-    for _, _, fn, reps in device_only:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host.append((time.perf_counter() - t0) * 1e3 / reps)
-        torch.cuda.synchronize()
     # What a wrapper's host time is made of: one ctypes call that makes
     # K7's two launches (its arguments prepared), and one torch.empty.
     lib = native.library()
@@ -1848,13 +2154,6 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
         torch.cuda.synchronize()
     print(f"phase mesh host costs: one ctypes call making K7's two launches "
           f"{costs[0]:.4f} ms, one torch.empty {costs[1]:.4f} ms", flush=True)
-    for (what, ev_ms, fn, reps), host_ms in zip(device_only, host):
-        dev_ms, acts, by_name = device_ms(torch, fn, reps)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        print(f"phase mesh {what}: {ev_ms:.4f} ms by events, {_fmt(dev_ms)} "
-              f"ms on the device ({acts:g} device activities a call: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in top)
-              + f"), {host_ms:.4f} ms of host time a call", flush=True)
     return table
 
 
@@ -2059,6 +2358,7 @@ def main() -> int:
     if "mesh-served" in phases:
         mesh_launches = mesh_served_phase(torch, gpu, dev)
         launches.update({k: mesh_launches[k] for k in MESH_KERNELS})
+    device_only_phase(torch)
     rows = []
     for name in native.KERNELS:
         rows.append(dict(name=name, route="cuda", source=SOURCES[name],

@@ -75,9 +75,19 @@
 //                          translation of the packed result, and the ring
 //                          append (a copy of the ring with the window's
 //                          [P, 1+R] winner delta at ring_n, clamped as
-//                          dynamic_update_slice clamps). One block reduces
-//                          per key, a grid writes the ring and packed.
-//                          Bound: launch latency; it moves under 1 MB.
+//                          dynamic_update_slice clamps). One launch over
+//                          the card: blocks of pool rows count per key
+//                          (scores above tau, rows feasible after the
+//                          window) into a small scratch with atomicAdd, and
+//                          the last of them, found by an atomic ticket,
+//                          writes nf0_2 and the flag and zeroes the scratch
+//                          (no fill launch); other blocks copy the ring as
+//                          16-byte vectors around the delta, whose rows and
+//                          packed one thread per step writes. ring2 is a
+//                          new tensor: a window whose certificate fails is
+//                          re-run from the old ring. Bound: bytes (the
+//                          ring read and written, 3.1 MB at the served
+//                          mesh's 65,536-row ring).
 //
 // Float contract: K8 scores with score.cuh's rounded intrinsics in the
 // reference's order of operations (-fmad=false), so it and its plain version
@@ -93,10 +103,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlockThreads = 1024;
-constexpr int kWarpsPerBlock = kBlockThreads / 32;
 constexpr int kApplyRows = 256;      // K7's write pass: rows per block
 constexpr int kSmemSortKeys = 16384;  // K9 sorts a segment in shared memory up to this
 constexpr int kSearchLanes = 8;       // K9: segments searched side by side
+constexpr int kFinishRows = 1024;     // K10: pool rows a reduce block counts
+constexpr int kCopyVecs = 1024;       // K10: 16-byte ring vectors a copy block moves
 
 inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
@@ -344,6 +355,7 @@ __global__ void k9_place(const float* __restrict__ cand,
 
 // ----------------------------------------------------------------- K10
 
+// Sum of v over the block (kThreads threads); meaningful in thread 0.
 __device__ int block_sum(int v, int* warp_buf) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -352,89 +364,128 @@ __device__ int block_sum(int v, int* warp_buf) {
   __syncthreads();
   int total = 0;
   if (threadIdx.x == 0)
-    for (int q = 0; q < kWarpsPerBlock; ++q) total += warp_buf[q];
+    for (int q = 0; q < kThreads / 32; ++q) total += warp_buf[q];
   __syncthreads();
-  return total;  // meaningful in thread 0 only
+  return total;
 }
 
-// One block: per key, the certificate (pool scores above tau, or the pool
-// holding every feasible row) and nf0_2 = nf0 + sum(ok after) - sum(ok before)
-// over the pool; flag = any key uncertified.
-__global__ void k10_reduce(const float* __restrict__ masked0,
-                           const float* __restrict__ cap,
-                           const float* __restrict__ pool_use2,
-                           const uint8_t* __restrict__ elig,
-                           const uint8_t* __restrict__ ban,
-                           const float* __restrict__ key_demands, int distinct,
-                           const float* __restrict__ tau,
-                           const int32_t* __restrict__ nf0,
-                           const int32_t* __restrict__ n_fin, int n_pool,
-                           int n_keys, int r_dims, int k_sel,
-                           int32_t* __restrict__ nf0_2,
-                           float* __restrict__ flag) {
-  __shared__ int warp_buf[kWarpsPerBlock];
-  int uncertified = 0;
-  for (int t = 0; t < n_keys; ++t) {
-    const float* m = masked0 + static_cast<int64_t>(t) * n_pool;
-    const float* d = key_demands + static_cast<int64_t>(t) * r_dims;
-    const float tt = tau[t];
+// One launch, three kinds of block by blockIdx.x:
+//   [0, n_red)          reduce: key t = b / tiles, pool rows
+//                       [tile * kFinishRows, +kFinishRows): the rows scoring
+//                       above tau and the rows feasible after the window,
+//                       added into scratch[2t], scratch[2t + 1]; then a
+//                       ticket, and the last block to take one writes nf0_2
+//                       and flag and puts the scratch back to zero.
+//   [n_red, +n_copy)    copy: the ring as a flat run of floats, 16-byte
+//                       vectors when aligned, kCopyVecs vectors a block,
+//                       leaving out the delta's floats.
+//   the rest            delta: one thread per step, its packed row in global
+//                       rows and its [1 + R] ring row at start + step.
+// The counts are integers, so the atomics' order changes no bit of nf0_2.
+__global__ void __launch_bounds__(kThreads) k10_finish(
+    const float* __restrict__ masked0, const float* __restrict__ cap,
+    const float* __restrict__ pool_use2, const uint8_t* __restrict__ elig,
+    const uint8_t* __restrict__ ban, const float* __restrict__ key_demands,
+    int distinct, const float* __restrict__ tau,
+    const int32_t* __restrict__ nf0, const int32_t* __restrict__ n_fin,
+    int n_pool, int n_keys, int r_dims, int k_sel, int tiles, int n_red,
+    const float* __restrict__ packed_loc, const int32_t* __restrict__ win,
+    const float* __restrict__ c_use, const int32_t* __restrict__ pool_rows,
+    const float* __restrict__ ring, int ring_rows, int start, int n_steps,
+    int n_copy, int vec, int32_t* __restrict__ scratch,
+    float* __restrict__ packed, int32_t* __restrict__ nf0_2,
+    float* __restrict__ ring2, float* __restrict__ flag) {
+  const int b = blockIdx.x;
+  if (b < n_red) {
+    __shared__ int warp_buf[kThreads / 32];
+    __shared__ bool last;
+    const int t = b / tiles;
+    const int c0 = (b - t * tiles) * kFinishRows;
+    const int c1 = c0 + kFinishRows < n_pool ? c0 + kFinishRows : n_pool;
     int above = 0;
     int ok_f = 0;
-    for (int c = threadIdx.x; c < n_pool; c += blockDim.x) {
-      above += m[c] > tt;
-      bool ok = elig[static_cast<int64_t>(t) * n_pool + c] != 0 &&
-                !(distinct && ban[c]);
-      for (int k = 0; k < r_dims; ++k)
-        ok = ok && (__fsub_rn(cap[static_cast<int64_t>(c) * r_dims + k],
-                              pool_use2[static_cast<int64_t>(c) * r_dims + k]) >=
-                    d[k]);
-      ok_f += ok;
+    if (t < n_keys) {
+      const float* m = masked0 + static_cast<int64_t>(t) * n_pool;
+      const float* d = key_demands + static_cast<int64_t>(t) * r_dims;
+      const float tt = tau[t];
+      for (int c = c0 + threadIdx.x; c < c1; c += kThreads) {
+        above += m[c] > tt;
+        bool ok = elig[static_cast<int64_t>(t) * n_pool + c] != 0 &&
+                  !(distinct && ban[c]);
+        for (int k = 0; k < r_dims; ++k)
+          ok = ok && (__fsub_rn(cap[static_cast<int64_t>(c) * r_dims + k],
+                                pool_use2[static_cast<int64_t>(c) * r_dims + k]) >=
+                      d[k]);
+        ok_f += ok;
+      }
     }
     above = block_sum(above, warp_buf);
     ok_f = block_sum(ok_f, warp_buf);
     if (threadIdx.x == 0) {
-      const bool exact = above >= k_sel || n_fin[t] >= nf0[t];
-      uncertified |= !exact;
-      nf0_2[t] = nf0[t] + (ok_f - n_fin[t]);
+      if (t < n_keys) {
+        atomicAdd(&scratch[2 * t], above);
+        atomicAdd(&scratch[2 * t + 1], ok_f);
+      }
+      __threadfence();
+      last = atomicAdd(&scratch[2 * n_keys], 1) == n_red - 1;
     }
+    __syncthreads();
+    if (!last) return;
+    // Every other block's counts landed before its ticket.
+    __threadfence();
+    int uncertified = 0;
+    for (int q = threadIdx.x; q < n_keys; q += kThreads) {
+      const int n_above = atomicExch(&scratch[2 * q], 0);
+      const int n_ok = atomicExch(&scratch[2 * q + 1], 0);
+      uncertified |= !(n_above >= k_sel || n_fin[q] >= nf0[q]);
+      nf0_2[q] = nf0[q] + (n_ok - n_fin[q]);
+    }
+    uncertified = __syncthreads_or(uncertified);
+    if (threadIdx.x == 0) {
+      *flag = uncertified ? 1.0f : 0.0f;
+      scratch[2 * n_keys] = 0;
+    }
+    return;
   }
-  if (threadIdx.x == 0) *flag = uncertified ? 1.0f : 0.0f;
-}
-
-// One thread per ring row (and per step): the ring copy with the winner
-// delta at the clamped start, and the packed result in global rows.
-__global__ void k10_emit(const float* __restrict__ packed_loc,
-                         const int32_t* __restrict__ win,
-                         const float* __restrict__ c_use,
-                         const int32_t* __restrict__ pool_rows,
-                         const float* __restrict__ ring, int ring_rows,
-                         int start, int n_steps, int r_dims,
-                         float* __restrict__ packed,
-                         float* __restrict__ ring2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_steps) {
-    const float* src = packed_loc + 3 * static_cast<int64_t>(i);
-    const float loc = src[0];
-    float* out = packed + 3 * static_cast<int64_t>(i);
-    out[0] = loc >= 0.0f ? static_cast<float>(pool_rows[static_cast<int>(loc)])
-                         : -1.0f;
-    out[1] = src[1];
-    out[2] = src[2];
-  }
-  if (i >= ring_rows) return;
   const int w1 = r_dims + 1;
-  float* dst = ring2 + static_cast<int64_t>(i) * w1;
-  const int j = i - start;
-  if (j >= 0 && j < n_steps) {
-    const float loc = packed_loc[3 * static_cast<int64_t>(j)];
-    dst[0] = loc >= 0.0f ? static_cast<float>(pool_rows[static_cast<int>(loc)])
-                         : -1.0f;
-    const float* u = c_use + static_cast<int64_t>(win[j]) * r_dims;
-    for (int k = 0; k < r_dims; ++k) dst[1 + k] = u[k];
-  } else {
-    const float* src = ring + static_cast<int64_t>(i) * w1;
-    for (int k = 0; k < w1; ++k) dst[k] = src[k];
+  if (b < n_red + n_copy) {
+    const int64_t total = static_cast<int64_t>(ring_rows) * w1;
+    const int64_t d0 = static_cast<int64_t>(start) * w1;
+    const int64_t d1 = d0 + static_cast<int64_t>(n_steps) * w1;
+    const int64_t f_lo = static_cast<int64_t>(b - n_red) * kCopyVecs * 4;
+    const int64_t f_hi =
+        f_lo + kCopyVecs * 4 < total ? f_lo + kCopyVecs * 4 : total;
+    if (vec) {
+      const float4* src = reinterpret_cast<const float4*>(ring);
+      float4* dst = reinterpret_cast<float4*>(ring2);
+      for (int64_t f = f_lo + 4 * threadIdx.x; f < f_hi; f += 4 * kThreads) {
+        if (f + 4 <= d0 || f >= d1) {
+          dst[f >> 2] = src[f >> 2];
+        } else {
+          for (int e = 0; e < 4; ++e)
+            if (f + e < d0 || f + e >= d1) ring2[f + e] = ring[f + e];
+        }
+      }
+    } else {
+      for (int64_t f = f_lo + threadIdx.x; f < f_hi; f += kThreads)
+        if (f < d0 || f >= d1) ring2[f] = ring[f];
+    }
+    return;
   }
+  const int j = (b - n_red - n_copy) * kThreads + threadIdx.x;
+  if (j >= n_steps) return;
+  const float* src = packed_loc + 3 * static_cast<int64_t>(j);
+  const float loc = src[0];
+  const float row =
+      loc >= 0.0f ? static_cast<float>(pool_rows[static_cast<int>(loc)]) : -1.0f;
+  float* out = packed + 3 * static_cast<int64_t>(j);
+  out[0] = row;
+  out[1] = src[1];
+  out[2] = src[2];
+  float* dst = ring2 + static_cast<int64_t>(start + j) * w1;
+  const float* u = c_use + static_cast<int64_t>(win[j]) * r_dims;
+  dst[0] = row;
+  for (int k = 0; k < r_dims; ++k) dst[1 + k] = u[k];
 }
 
 }  // namespace
@@ -537,7 +588,9 @@ int nomad_pool_build(const float* cand, int n_seg, int b_buf, int w,
 // K10. masked0 [T, C] and n_fin [T] from K2 over the pool; packed_loc [P, 3]
 // (pool indices), win [P] and c_use [n_sel, R] from K4a; pool_use2 [C, R] is
 // K4a's usage_out. Outputs packed [P, 3] (global rows), nf0_2 [T], ring2
-// [ring_rows, 1 + R] and flag (one f32).
+// [ring_rows, 1 + R] and flag (one f32). scratch [2T + 1] i32 holds 0 on
+// entry and is left so; vec says ring and ring2 are 16-byte aligned and
+// ring_rows * (1 + R) is a multiple of 4.
 int nomad_warm_finish(const float* masked0, const int32_t* n_fin,
                       const float* packed_loc, const int32_t* win,
                       const float* c_use, const int32_t* pool_rows,
@@ -547,17 +600,24 @@ int nomad_warm_finish(const float* masked0, const int32_t* n_fin,
                       const int32_t* nf0, const float* ring, int ring_rows,
                       int ring_n, int n_pool, int n_keys, int r_dims,
                       int n_steps, int k_sel, float* packed, int32_t* nf0_2,
-                      float* ring2, float* flag, cudaStream_t stream) {
+                      float* ring2, float* flag, int32_t* scratch, int vec,
+                      cudaStream_t stream) {
   if (n_steps > ring_rows) return static_cast<int>(cudaErrorInvalidValue);
   const int start = ring_n < 0 ? 0
                     : (ring_n > ring_rows - n_steps ? ring_rows - n_steps
                                                     : ring_n);
-  k10_reduce<<<1, kBlockThreads, 0, stream>>>(
+  const int tiles =
+      n_pool > kFinishRows ? (n_pool + kFinishRows - 1) / kFinishRows : 1;
+  const int n_red = n_keys > 0 ? n_keys * tiles : 1;
+  const int64_t floats = static_cast<int64_t>(ring_rows) * (r_dims + 1);
+  const int n_copy =
+      static_cast<int>((floats + kCopyVecs * 4 - 1) / (kCopyVecs * 4));
+  const int n_delta = (n_steps + kThreads - 1) / kThreads;
+  k10_finish<<<n_red + n_copy + n_delta, kThreads, 0, stream>>>(
       masked0, cap, pool_use2, elig, ban, key_demands, distinct, tau, nf0,
-      n_fin, n_pool, n_keys, r_dims, k_sel, nf0_2, flag);
-  k10_emit<<<blocks_for(ring_rows), kThreads, 0, stream>>>(
-      packed_loc, win, c_use, pool_rows, ring, ring_rows, start, n_steps,
-      r_dims, packed, ring2);
+      n_fin, n_pool, n_keys, r_dims, k_sel, tiles, n_red, packed_loc, win,
+      c_use, pool_rows, ring, ring_rows, start, n_steps, n_copy, vec, scratch,
+      packed, nf0_2, ring2, flag);
   return static_cast<int>(cudaGetLastError());
 }
 

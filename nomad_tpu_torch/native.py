@@ -162,7 +162,7 @@ _SIGNATURES = {
     "nomad_pool_build": [_P, _I, _I, _I, _P, _P, _I, _I, _I] + [_P] * 12
     + [_P],
     "nomad_warm_finish": [_P] * 11 + [_I, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _I] + [_P] * 4 + [_P],
+                                      _I, _I] + [_P] * 5 + [_I, _P],
 }
 # Entries that return a byte count (int64) rather than a cudaError_t.
 _SIZES = {

@@ -7,8 +7,8 @@ missing-allocation list to the stack as ONE batched device program instead of
 a per-allocation iterator walk.
 
 Ported from nomad_tpu/scheduler/generic_sched.py: the placements run on the
-index's device. The "cpu-reference" engine and the QoS preemption branch
-wait for later slices and raise where the reference would take them.
+index's device. The "cpu-reference" engine waits for a later slice and
+raises where the reference would take it.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from nomad_tpu_torch.structs.structs import (
     EvalTriggerPeriodicJob,
     EvalTriggerRollingUpdate,
 )
+from nomad_tpu_torch.qos import attempt_preemption
 from nomad_tpu_torch.tensor import TensorIndex
 
 from .context import EvalContext
@@ -352,14 +353,19 @@ class GenericScheduler:
         options = self.stack.select_batch([t.TaskGroup for t in place])
         self.ctx.metrics.NodesAvailable = by_dc
 
-        # QoS preemption (capability beyond reference v0.4) fires only for a
-        # planner that carries a QoS config; its port waits for the served
-        # slice, so reaching it raises rather than silently skipping it.
+        # QoS preemption (capability beyond reference v0.4): a HIGH-tier
+        # placement that found no feasible capacity may evict lower-tier
+        # allocs; the plan applier re-verifies evictions + placement
+        # atomically per node. The planner (Worker) carries the config;
+        # no-op when QoS is off or nothing failed.
         qos = getattr(self.planner, "qos", None)
         if (qos is not None and qos.enabled and qos.preemption
                 and any(o is None for o in options)):
-            raise NotImplementedError(
-                "QoS preemption waits for the served slice of the port")
+            options = attempt_preemption(
+                self.state, self.plan, self.eval.ID, self.job, place,
+                options, nodes, qos,
+                counters=getattr(self.planner, "qos_counters", None),
+                log=self.logger)
 
         build_placement_allocs(self.eval, self.job, self.ctx, place, options,
                                self.plan, self.failed_tg_allocs)

@@ -210,6 +210,9 @@ def merge_candidates_plain(cand: torch.Tensor, masked0: torch.Tensor,
     return rows_s.to(torch.int32), keep
 
 
+_K3_TILE = 1024   # keys a block of K3 sorts (csrc/keyed.cu kTileKeys)
+
+
 def merge_candidates(cand: torch.Tensor, masked0: torch.Tensor, k_cand: int):
     """K3. See merge_candidates_plain for the contract."""
     if not _on_cuda(cand, masked0):
@@ -220,23 +223,33 @@ def merge_candidates(cand: torch.Tensor, masked0: torch.Tensor, k_cand: int):
     _need(masked0, torch.float32, (n_keys, n), "masked0")
     k_trim = min(k_cand, n_cand)
     trim = n_keys * k_trim < n_cand
-    n_out = n_keys * k_trim if trim else n_cand
     dev = cand.device
-    n_pow2 = 1 << max(0, (n_cand - 1).bit_length())
-    gbuf = (torch.empty(n_pow2, dtype=torch.int64, device=dev)
-            if n_pow2 > 4096 else None)
-    rows_all = torch.empty(n_cand if trim else 0, dtype=torch.int32,
-                           device=dev)
-    keep_all = torch.empty(n_cand if trim else 0, dtype=torch.uint8,
-                           device=dev)
-    sel = torch.empty(n_out if trim else 0, dtype=torch.int32, device=dev)
-    rows_out = torch.empty(n_out, dtype=torch.int32, device=dev)
-    keep_out = torch.empty(n_out, dtype=torch.bool, device=dev)
+    # Outputs and scratch as views of one buffer per dtype (the wrapper's
+    # host time is mostly tensor creation). Without the trim (every path of
+    # the port) the u64 scratch holds the sorted 1,024-key tiles; the
+    # trim's one-block merge sorts in shared memory up to 4,096 keys.
+    if trim:
+        n_out = n_keys * k_trim
+        n_pow2 = 1 << max(0, (n_cand - 1).bit_length())
+        n_keys64 = n_pow2 if n_pow2 > 4096 else 0
+        rows_all, sel, rows_out = torch.empty(
+            n_cand + 2 * n_out, dtype=torch.int32, device=dev).split(
+                [n_cand, n_out, n_out])
+        keep_all, keep_out = torch.empty(
+            n_cand + n_out, dtype=torch.bool, device=dev).split(
+                [n_cand, n_out])
+    else:
+        n_keys64 = -(-n_cand // _K3_TILE) * _K3_TILE
+        rows_out = torch.empty(n_cand, dtype=torch.int32, device=dev)
+        keep_out = torch.empty(n_cand, dtype=torch.bool, device=dev)
+        rows_all = keep_all = sel = None
+    gbuf = (torch.empty(n_keys64, dtype=torch.int64, device=dev)
+            if n_keys64 else None)
     p = native.ptr
     err = native.library().nomad_merge_candidates(
         p(cand), p(masked0), n, n_keys, n_cand, k_trim, int(trim), p(gbuf),
-        p(rows_all), p(keep_all), p(sel), p(rows_out), p(_u8(keep_out)),
-        native.stream(dev))
+        p(rows_all), p(_u8(keep_all)) if trim else None, p(sel),
+        p(rows_out), p(_u8(keep_out)), native.stream(dev))
     native.check("merge_candidates", err)
     return rows_out, keep_out
 
@@ -856,19 +869,44 @@ def warm_finish(masked0, n_fin, packed_loc, win, c_use, pool_rows, cap,
         raise ValueError(f"warm_finish: {steps} steps exceed the ring's "
                          f"{ring_rows} rows")
     dev = masked0.device
-    packed = torch.empty((steps, 3), dtype=torch.float32, device=dev)
+    # The outputs as views of one buffer per dtype, ring2 first so that it
+    # starts 16-byte aligned; a new ring, never the old one updated (a
+    # window whose certificate fails is re-run from the old ring).
+    n_ring = ring.numel()
+    fbuf = torch.empty(n_ring + 3 * steps + 1, dtype=torch.float32,
+                       device=dev)
+    ring2 = fbuf[:n_ring].view(ring_rows, r + 1)
+    packed = fbuf[n_ring:n_ring + 3 * steps].view(steps, 3)
+    flag = fbuf[-1]
     nf0_2 = torch.empty(t, dtype=torch.int32, device=dev)
-    ring2 = torch.empty_like(ring)
-    flag = torch.empty((), dtype=torch.float32, device=dev)
+    vec = int(ring.data_ptr() % 16 == 0 and n_ring % 4 == 0)
     p = native.ptr
     err = native.library().nomad_warm_finish(
         p(masked0), p(n_fin), p(packed_loc), p(win), p(c_use), p(pool_rows),
         p(cap), p(pool_use2), p(_u8(elig)), p(_u8(ban)), p(key_demands),
         int(bool(distinct)), p(tau), p(nf0), p(ring), ring_rows, int(ring_n),
         c, t, r, steps, int(k_sel), p(packed), p(nf0_2), p(ring2), p(flag),
-        native.stream(dev))
+        p(_k10_scratch(dev, t)), vec, native.stream(dev))
     native.check("warm_finish", err)
     return packed, nf0_2, ring2, flag
+
+
+# K10's per-key counts and ticket, one zeroed buffer per device that every
+# call leaves zeroed (its last block puts it back), so no call fills it.
+# The port launches on one stream a device, which orders the calls that
+# share it.
+_K10_SCRATCH = {}
+_K10_SCRATCH_LOCK = threading.Lock()
+
+
+def _k10_scratch(dev: torch.device, n_keys: int) -> torch.Tensor:
+    with _K10_SCRATCH_LOCK:
+        buf = _K10_SCRATCH.get(dev)
+        if buf is None or buf.numel() < 2 * n_keys + 1:
+            buf = torch.zeros(max(64, 2 * n_keys + 1), dtype=torch.int32,
+                              device=dev)
+            _K10_SCRATCH[dev] = buf
+        return buf
 
 
 # ------------------------------------------------------- the pipeline

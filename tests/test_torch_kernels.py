@@ -343,6 +343,153 @@ class TestHost:
         assert (ref.nf_last, ref.ok) == (got.nf_last, got.ok) == (6, False)
 
 
+# ------------------------------------------- K3 as the card runs it
+
+
+K3_TILE = 1024   # csrc/keyed.cu kTileKeys
+
+
+def _k3_model(cand):
+    """K3's untrimmed merge (csrc/keyed.cu k3_tile_sort, k3_place) in
+    numpy. The flat candidates become keys row << 32 | position, cut into
+    tiles of 1,024 padded with ~0, and each tile goes through the kernel's
+    bitonic network: at stage (k, j) position i meets position i ^ j and
+    keeps the smaller key when (i & j == 0) == (i & k == 0). Then
+    each key's index in the merged order is its rank in its tile plus, per
+    other tile, the count of keys below it (a search by powers of two from
+    1,024); the largest such key over all tiles is its predecessor, whose
+    row decides keep. Returns (rows int32, keep bool)."""
+    flat = np.asarray(cand).reshape(-1).astype(np.int64)
+    n = flat.size
+    n_tiles = -(-n // K3_TILE)
+    keys = (flat.astype(np.uint64) << np.uint64(32)) | np.arange(
+        n, dtype=np.uint64)
+    buf = np.full(n_tiles * K3_TILE, np.iinfo(np.uint64).max, np.uint64)
+    buf[:n] = keys
+    buf = buf.reshape(n_tiles, K3_TILE)
+    lane = np.arange(K3_TILE)
+    k = 2
+    while k <= K3_TILE:
+        j = k // 2
+        while j > 0:
+            other = buf[:, lane ^ j]
+            keep_min = ((lane & j) == 0) == ((lane & k) == 0)
+            buf = np.where(keep_min, np.minimum(buf, other),
+                           np.maximum(buf, other))
+            j //= 2
+        k *= 2
+    assert (buf[:, 1:] >= buf[:, :-1]).all()   # ~0 padding repeats
+    key = buf.reshape(-1)
+    g = np.repeat(np.arange(n_tiles), K3_TILE)
+    jj = np.tile(lane, n_tiles)
+    dst = jj.copy()
+    has_pred = jj > 0
+    pred = np.where(has_pred, key[np.maximum(np.arange(key.size) - 1, 0)],
+                    0).astype(np.uint64)
+    for h in range(n_tiles):
+        other = g != h
+        lo = np.zeros(key.size, np.int64)
+        step = K3_TILE
+        while step > 0:
+            probe = lo + step
+            hit = (probe <= K3_TILE) & (
+                buf[h][np.minimum(probe, K3_TILE) - 1] < key)
+            lo = np.where(hit, probe, lo)
+            step //= 2
+        assert (lo == np.searchsorted(buf[h], key)).all()
+        take = other & (lo > 0)
+        dst = np.where(other, dst + lo, dst)
+        below = buf[h][np.maximum(lo - 1, 0)]
+        better = take & (~has_pred | (below > pred))
+        pred = np.where(better, below, pred)
+        has_pred |= take
+    real = g * K3_TILE + jj < n
+    assert sorted(dst[real]) == list(range(n))
+    rows = np.empty(n, np.int32)
+    keep = np.empty(n, bool)
+    rows[dst[real]] = (key[real] >> np.uint64(32)).astype(np.int32)
+    keep[dst[real]] = (~has_pred | ((pred >> np.uint64(32))
+                                    != (key >> np.uint64(32))))[real]
+    return rows, keep
+
+
+def _jax_merge(cand, masked0, k_cand):
+    """The reference's merge (nomad_tpu/scheduler/kernels.py:444-506) on
+    the candidate rows, in jnp: a stable argsort by row, first-occurrence
+    keep and, when T * k_trim < n_cand, each key's lax.top_k of the
+    window-start scores with duplicates at -inf, re-sorted by row with keep
+    rebuilt."""
+    import jax
+
+    rows_g = jnp.asarray(np.asarray(cand).reshape(-1))
+    rows_s = rows_g[jnp.argsort(rows_g, stable=True)]
+    keep = jnp.concatenate([jnp.ones((1,), bool), rows_s[1:] != rows_s[:-1]])
+    n_keys, n_cand = masked0.shape[0], rows_g.shape[0]
+    k_trim = min(k_cand, n_cand)
+    if n_keys * k_trim < n_cand:
+        masked0c = jnp.where(keep[None, :],
+                             jnp.asarray(np.asarray(masked0))[:, rows_s],
+                             -jnp.inf)
+        _, tidx = jax.lax.top_k(masked0c, k_trim)
+        sel = tidx.reshape(-1)
+        sel = sel[jnp.argsort(rows_s[sel], stable=True)]
+        rows_s = rows_s[sel]
+        keep = jnp.concatenate([jnp.ones((1,), bool),
+                                rows_s[1:] != rows_s[:-1]])
+    return np.asarray(rows_s), np.asarray(keep)
+
+
+def _k3_case(n, t, k_cand, seed):
+    """K2's plain outputs over a varied fleet: masked0 [T, n] and each
+    key's top-min(k, n) rows (keys share rows: duplicates across keys)."""
+    _, d = _keyed_inputs(n=n, t=t, seed=seed)
+    masked0, _, cand = tk.score_topk_plain(
+        *[_t(d[k]) for k in ("capacity", "score_cap", "usage", "tg_masks",
+                             "job_counts", "key_demands", "noise")],
+        10.0, False, _t(d["banned0"]), k_cand)
+    return cand, masked0
+
+
+# (rows, keys, k): the served window (T = 1, 4,096 candidates, 4 tiles),
+# one tile, T > 1 with rows shared across keys, n_cand no multiple of the
+# tile, 8 tiles (k3_place stages 4 at a time), 12 tiles, and k above the
+# rows (kc = n).
+K3_CASES = [(16384, 1, 4096), (2048, 1, 64), (1024, 3, 256),
+            (4096, 3, 700), (8192, 2, 4096), (8192, 3, 4096),
+            (300, 2, 512)]
+
+
+@pytest.mark.parametrize("n,t,k", K3_CASES)
+def test_merge_model_matches_plain_and_reference(n, t, k):
+    cand, masked0 = _k3_case(n, t, k, seed=n + t)
+    rows, keep = tk.merge_candidates_plain(cand, masked0, k)
+    model = _k3_model(cand.numpy())
+    ref = _jax_merge(cand.numpy(), masked0.numpy(), k)
+    assert rows.numel() == cand.numel()   # the trim does not fire
+    for got in (model, (rows.numpy(), keep.numpy())):
+        np.testing.assert_array_equal(got[0], ref[0])
+        np.testing.assert_array_equal(got[1], ref[1])
+    if t > 1:
+        assert 0 < keep.sum() < keep.numel()   # duplicates across keys
+
+
+def test_merge_trim_matches_reference():
+    """The per-key trim (csrc/keyed.cu k3_merge), which no path of the port
+    runs: candidates of 8 row shards' own top-64 for 2 keys."""
+    n, t, k = 4096, 2, 64
+    cand0, masked0 = _k3_case(n, t, n, seed=5)
+    shard = n // 8
+    cand = torch.cat([
+        torch.sort(masked0[:, i * shard:(i + 1) * shard], dim=1,
+                   descending=True, stable=True).indices[:, :k] + i * shard
+        for i in range(8)]).to(torch.int32)
+    rows, keep = tk.merge_candidates_plain(cand, masked0, k)
+    assert rows.numel() == t * k
+    ref = _jax_merge(cand.numpy(), masked0.numpy(), k)
+    np.testing.assert_array_equal(rows.numpy(), ref[0])
+    np.testing.assert_array_equal(keep.numpy(), ref[1])
+
+
 class TestWrapperRouting:
     def test_cpu_tensors_take_the_plain_version(self):
         native.reset_counts()
@@ -525,3 +672,35 @@ def test_compact_window_kernel_matches_plain_on_card(cuda_device, e, p):
                            else g,
                            r.view(torch.int32) if r.dtype == torch.float32
                            else r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,k", K3_CASES)
+def test_merge_kernel_matches_plain_and_model_on_card(cuda_device, n, t, k):
+    cand, masked0 = _k3_case(n, t, k, seed=n + t)
+    got = tk.merge_candidates(cand.to(cuda_device), masked0.to(cuda_device),
+                              k)
+    torch.cuda.synchronize()
+    ref = tk.merge_candidates_plain(cand, masked0, k)
+    model = _k3_model(cand.numpy())
+    for g, r, m in zip(got, ref, model):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.numpy())
+        np.testing.assert_array_equal(g.cpu().numpy(), m)
+
+
+@pytest.mark.cuda
+def test_merge_trim_kernel_matches_plain_on_card(cuda_device):
+    n, t, k = 4096, 2, 64
+    _, masked0 = _k3_case(n, t, n, seed=5)
+    shard = n // 8
+    cand = torch.cat([
+        torch.sort(masked0[:, i * shard:(i + 1) * shard], dim=1,
+                   descending=True, stable=True).indices[:, :k] + i * shard
+        for i in range(8)]).to(torch.int32)
+    got = tk.merge_candidates(cand.to(cuda_device), masked0.to(cuda_device),
+                              k)
+    torch.cuda.synchronize()
+    ref = tk.merge_candidates_plain(cand, masked0, k)
+    assert got[0].numel() == t * k
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.numpy())

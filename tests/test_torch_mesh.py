@@ -656,6 +656,198 @@ def test_failed_placements_and_success_mask(jax_mesh):
     np.testing.assert_array_equal(packs[1], packs[2])
 
 
+# ------------------------------------------------ K10 as the card runs it
+
+
+K10_ROWS = 1024          # csrc/mesh.cu kFinishRows: pool rows a block counts
+K10_BLOCK_FLOATS = 4096  # kCopyVecs 16-byte vectors: ring floats a block copies
+
+
+def _k10_model(masked0, n_fin, packed_loc, win, c_use, pool_rows, cap,
+               pool_use2, elig, ban, key_demands, distinct, tau, nf0, ring,
+               ring_n, k_sel, order_seed=0):
+    """K10 (csrc/mesh.cu k10_finish) in numpy, one launch's three kinds of
+    block. Reduce blocks count, per key and tile of 1,024 pool rows, the
+    scores above tau and the rows feasible after the window, and add them
+    into the scratch in a shuffled block order (integer sums: the order
+    cannot matter); the block taking the last ticket writes nf0_2 and the
+    flag. Copy blocks move the ring as 16-byte vectors when it is aligned
+    (ring_rows * (1 + R) a multiple of 4), a vector that straddles the
+    delta float by float; one thread per step writes the delta and packed.
+    Every float of ring2 must be written exactly once. Returns (packed,
+    nf0_2, ring2, flag) as numpy arrays."""
+    a = [np.asarray(x) for x in (masked0, n_fin, packed_loc, win, c_use,
+                                 pool_rows, cap, pool_use2, elig, ban,
+                                 key_demands, tau, nf0, ring)]
+    (masked0, n_fin, packed_loc, win, c_use, pool_rows, cap, pool_use2, elig,
+     ban, kd, tau, nf0, ring) = a
+    t, c = masked0.shape
+    r = cap.shape[1]
+    steps, ring_rows = len(packed_loc), len(ring)
+    start = 0 if ring_n < 0 else min(ring_n, ring_rows - steps)
+    tiles = max(1, -(-c // K10_ROWS))
+    n_red = t * tiles if t > 0 else 1
+    scratch = np.zeros(2 * t + 1, np.int64)
+    nf0_2 = flag = None
+    for b in np.random.default_rng(order_seed).permutation(n_red):
+        q = b // tiles
+        c0 = (b - q * tiles) * K10_ROWS
+        c1 = min(c0 + K10_ROWS, c)
+        if q < t:
+            scratch[2 * q] += (masked0[q, c0:c1] > tau[q]).sum()
+            fits = (cap[c0:c1] - pool_use2[c0:c1] >= kd[q]).all(axis=1)
+            ok = elig[q, c0:c1] & fits & ~(distinct & ban[c0:c1])
+            scratch[2 * q + 1] += ok.sum()
+        scratch[2 * t] += 1
+        if scratch[2 * t] == n_red:
+            above, n_ok = scratch[0:2 * t:2], scratch[1:2 * t:2]
+            nf0_2 = (nf0 + (n_ok - n_fin)).astype(np.int32)
+            flag = np.float32(
+                (~((above >= k_sel) | (n_fin >= nf0))).any())
+    w1 = r + 1
+    flat = ring.reshape(-1)
+    total = flat.size
+    d0, d1 = start * w1, (start + steps) * w1
+    out = np.zeros(total, np.float32)
+    writes = np.zeros(total, np.int64)
+    f = np.arange(total)
+    outside = (f < d0) | (f >= d1)
+    if total % 4 == 0:
+        vec_out = outside.reshape(-1, 4).all(axis=1)
+        whole = np.repeat(vec_out, 4)
+        writes += whole
+        writes += ~whole & outside   # a straddling vector, float by float
+    else:
+        writes += outside
+    out[outside] = flat[outside]
+    loc = packed_loc[:, 0]
+    rows_g = np.where(loc >= 0, pool_rows[np.maximum(loc, 0).astype(
+        np.int64)].astype(np.float32), np.float32(-1.0))
+    delta = np.concatenate([rows_g[:, None], c_use[win]], axis=1)
+    out[d0:d1] = delta.reshape(-1)
+    writes[d0:d1] += 1
+    assert (writes == 1).all()
+    assert n_red == 0 or scratch[2 * t] == n_red
+    packed = packed_loc.copy()
+    packed[:, 0] = rows_g
+    return packed, nf0_2, out.reshape(ring_rows, w1), flag
+
+
+def _finish_case(seed, c, t, p, ring_rows, ring_n, distinct, flag, r=5):
+    """warm_finish's arguments (numpy) made from a seed, as chip_smoke.py's
+    warm_finish_case makes them: flag 0 certifies every key, flag 1 fails
+    the last key's certificate (tau above every score, n_fin below nf0)."""
+    rng = np.random.default_rng(seed)
+    masked0 = rng.uniform(0, 18, (t, c)).astype(np.float32)
+    masked0[rng.random((t, c)) < 0.3] = -np.inf
+    tau = np.full(t, 0.5, np.float32)
+    k_sel = min(4096, c)
+    n_fin = rng.integers(0, c + 1, t).astype(np.int32)
+    nf0 = (n_fin + rng.integers(1, 1000, t)).astype(np.int32)
+    short = (masked0 > tau[:, None]).sum(axis=1) < k_sel
+    nf0[short] = n_fin[short]
+    if flag:
+        tau[-1] = 18.0
+        nf0[-1] = n_fin[-1] + 1
+    loc = rng.integers(0, c, p).astype(np.float32)
+    loc[rng.random(p) < 0.1] = -1.0
+    packed_loc = np.stack([loc, rng.uniform(0, 18, p).astype(np.float32),
+                           rng.integers(0, c, p).astype(np.float32)], axis=1)
+    n_sel = max(1, min(c, 4096))
+    win = rng.integers(0, n_sel, p).astype(np.int32)
+    c_use = rng.uniform(0, 4000, (n_sel, r)).astype(np.float32)
+    pool_rows = np.sort(rng.choice(max(4 * c, 16), c, replace=False)).astype(
+        np.int32)
+    cap = rng.uniform(1000, 4000, (c, r)).astype(np.float32)
+    use2 = rng.uniform(0, 4000, (c, r)).astype(np.float32)
+    elig = rng.random((t, c)) < 0.8
+    ban = rng.random(c) < 0.1
+    kd = rng.uniform(5, 40, (t, r)).astype(np.float32)
+    ring = rng.uniform(0, 500, (ring_rows, r + 1)).astype(np.float32)
+    ring[:, 0] = rng.integers(-1, 4 * c, ring_rows)
+    return (masked0, n_fin, packed_loc, win, c_use, pool_rows, cap, use2,
+            elig, ban, kd, bool(distinct), tau, nf0, ring, int(ring_n), k_sel)
+
+
+# (seed, pool rows C, keys T, steps P, ring rows, ring_n, distinct, flag):
+# the mesh-served storm's shape, its delta clamped at the ring's end with a
+# failed certificate, three keys with a pool and a ring of no round size
+# (float-by-float copy), one key of two uncertified, and a one-row ring.
+FINISH_CASES = [(101, 16384, 1, 4096, 65536, 8192, False, 0),
+                (102, 16384, 1, 4096, 65536, 65500, False, 1),
+                (103, 5003, 3, 777, 12437, -5, True, 1),
+                (105, 3000, 2, 64, 1024, 960, False, 1),
+                (104, 1, 2, 1, 1, 0, False, 0)]
+
+
+def _finish_equal(got, want):
+    for g, w in zip(got, want):
+        g = np.asarray(g.cpu() if isinstance(g, torch.Tensor) else g)
+        np.testing.assert_array_equal(np.asarray(w).view(np.int32)
+                                      if g.dtype == np.float32
+                                      else np.asarray(w),
+                                      g.view(np.int32)
+                                      if g.dtype == np.float32 else g)
+
+
+@pytest.mark.parametrize("case", FINISH_CASES)
+def test_warm_finish_model_matches_plain(case):
+    arrs = _finish_case(*case)
+    args = tuple(_t(a) if isinstance(a, np.ndarray) else a for a in arrs)
+    plain = tk.warm_finish_plain(*args)
+    for seed in (0, 1):
+        model = _k10_model(*arrs, order_seed=seed)
+        _finish_equal(plain, model)
+    assert float(plain[3]) == case[-1]
+
+
+@pytest.mark.parametrize("ring_n,miss", [(0, False), (448, False),
+                                         (1 << 20, False), (64, True)])
+def test_warm_finish_model_matches_reference(jax_mesh, ring_n, miss):
+    """The reference's warm step on a pool from its own cold stage; K10's
+    model fed the port's K2-K4a plain outputs over the same pool gives the
+    reference's packed rows, nf0_2, ring and flag. miss=True raises the
+    pool's tau above every score and nf0 above what the pool holds, so
+    both keys' certificates fail; ring_n beyond the ring clamps."""
+    n, t, p_pad, n_valid = 4096, 2, 64, 60
+    d = _fleet(n, t, 7)
+    k = tk.keyed_cand_count(n_valid)
+    j = _Jax(jax_mesh, k, d)
+    pkt, _, nf, vals = j.cold(True, jk._ring_zero(j.prog.ring_cap, 5))
+    pool = [np.asarray(a) for a in j.prog.pool_build(
+        pkt, nf, vals, np.asarray(d["key_demands"]))]
+    if miss:
+        pool[3] = np.full_like(pool[3], 1e9)
+        pool[4] = pool[4] + n
+    ring = _ring(j.prog.ring_cap, n, 8, min(ring_n, j.prog.ring_cap))
+    tg_ids, valid, reset = _steps(t, p_pad, n_valid, 9)
+    ref = j.prog.warm_step(*pool, ring, np.int32(ring_n),
+                           np.asarray(d["key_demands"]), tg_ids, valid,
+                           reset, PEN, np.asarray(True))
+    st = mesh_state_from_numpy(dict(zip(
+        ("pool", "pool_use", "keep", "tau", "nf0"), pool), ring=ring),
+        device="cpu")
+    ps, kd = st["pool_state"], _t(d["key_demands"])
+    masked0, n_fin, cand = tk.score_topk_plain(
+        ps.cap, ps.sc, st["pool_use"], ps.elig, ps.cnt, kd, ps.noise,
+        float(PEN), True, ps.ban, k)
+    sel, keep_sel = tk.merge_candidates_plain(cand, masked0, k)
+    packed_loc, pool_use2, win, c_use = tk.placement_chain_plain(
+        ps.cap, ps.sc, st["pool_use"], ps.elig, ps.cnt, kd, _t(tg_ids),
+        _t(valid), ps.noise, float(PEN), True, ps.ban, reset=_t(reset),
+        rows=sel, keep=keep_sel, masked0=masked0, nf0=st["nf0"],
+        winners=True)
+    args = (masked0, n_fin, packed_loc, win, c_use, ps.rows, ps.cap,
+            pool_use2, ps.elig, ps.ban, kd, True, ps.tau, st["nf0"],
+            st["ring"], ring_n, min(k, ps.rows.shape[0]))
+    model = _k10_model(*args)
+    _finish_equal(tk.warm_finish_plain(*args), model)
+    _assert_packed(ref[0], model[0])
+    np.testing.assert_array_equal(np.asarray(ref[2]), model[1])
+    np.testing.assert_array_equal(np.asarray(ref[3]), model[2])
+    assert float(ref[4]) == float(model[3]) == float(miss)
+
+
 # ------------------------------------------------------ the certificate
 
 
@@ -1073,3 +1265,26 @@ def test_apply_fn_threads_share_the_scratch_on_card(cuda_device):
         sys.setswitchinterval(old)
     assert not any(th.is_alive() for th in threads)
     assert not bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FINISH_CASES)
+def test_warm_finish_matches_plain_and_model_on_card(cuda_device, case):
+    arrs = _finish_case(*case)
+    args = tuple(torch.tensor(a, device=cuda_device)
+                 if isinstance(a, np.ndarray) else a for a in arrs)
+    # Twice: the first call must leave its scratch at zero.
+    for _ in range(2):
+        got = tk.warm_finish(*args)
+        assert all(_bits(a, b) for a, b in zip(got,
+                                               tk.warm_finish_plain(*args)))
+    _finish_equal(got, _k10_model(*arrs))
+    # A ring that is a view at an odd float offset takes the float-by-float
+    # copy.
+    ring = args[14]
+    odd = torch.empty(ring.numel() + 1, device=cuda_device)[1:].view_as(ring)
+    odd.copy_(ring)
+    args = args[:14] + (odd,) + args[15:]
+    assert all(_bits(a, b) for a, b in zip(tk.warm_finish(*args),
+                                           tk.warm_finish_plain(*args)))
+    torch.cuda.synchronize()
