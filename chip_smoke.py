@@ -58,19 +58,24 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            window of P = 1,024 steps with 800 valid placements (k = 1,024,
            B = 2,048), S = 8 logical shards of the card. Each of K6-K10
            against its plain version bit for bit on the chain's own stage
-           inputs (kernel, plain and, for K6, library times); K7 over all
-           shards in one call against the per-shard plain versions (the
-           chain's ring, 65,536-row rings at 1M and 16,384 rows, an empty
-           ring) and K9 on synthetic packets (T = 3, S = 1-8, B = 1, B a
-           whole shard, B = 8,192, segments beyond shared memory); then 6
-           chained windows (1 cold, 5 warm: the ring holds 16 windows)
-           through `place_batch_keyed` on the mesh and on one device, bit
-           for bit on `packed` and the materialized usage, with per-window
-           times, the exchanged bytes and the launches per window (pinned:
-           one K7 call and one K8 per shard per cold window); K2 on the
-           whole 1,048,576-row table against its plain version and
-           torch.topk; torch.topk and torch.sort as K8's and K9's
-           yardsticks; K10 at the mesh-served storm's shape (a 16,384-row
+           inputs (kernel, plain and, for K6 and K8, library times); K6
+           at 1, 255, 257 and 1,048,576 rows with 2, 5 and 7 resource
+           dimensions; K7 and K8 over all shards in one call each against
+           the per-shard plain versions laid end to end (K7: the chain's
+           ring, 65,536-row rings at 1M and 16,384 rows, an empty ring;
+           K8: the 1M-row window, mesh-served's 16,384 rows and the
+           certificate-miss shape, and its S = 1 form on every shard),
+           eight per-shard K8 calls against the one all-shard call by
+           events and device-only, and K9 on synthetic packets (T = 3, S =
+           1-8, B = 1, B a whole shard, B = 8,192, segments beyond shared
+           memory); then 6 chained windows (1 cold, 5 warm: the ring holds
+           16 windows) through `place_batch_keyed` on the mesh and on one
+           device, bit for bit on `packed` and the materialized usage, with
+           per-window times, the exchanged bytes and the launches per
+           window (pinned: one K7 call and one K8 call per cold
+           window); K2 on the whole 1,048,576-row table against its plain
+           version and torch.topk; torch.topk and torch.sort as K8's and
+           K9's yardsticks; K10 at the mesh-served storm's shape (a 16,384-row
            pool, a 65,536-row ring, 4,096 steps) and at edge cases (a
            failed certificate, a delta clamped at the ring's end, three
            keys, a ring of no round size, a one-row ring), bit for bit.
@@ -101,7 +106,8 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
 
 Last, every kernel's device-only time a call (torch.profiler's CUDA
 activity) beside its event time and its host time a call, at the shapes
-the phases gave it, and torch.sort(stable=True) of K3's rows: taken after
+the phases gave it, and the library yardsticks (torch.sort(stable=True) of
+K3's rows, torch.cat for K6, torch.topk for K8, torch.sort for K9): taken after
 every event time, because a profiler session slows later launches.
 
 --package-root DIR drives the nomad_tpu_torch package found in DIR (an
@@ -1830,8 +1836,8 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
         usage = res.usage_after
     stats = K.mesh_stats_drain()
     if pin_launches:
-        # One K7 call per cold window covers all shards; K8 per shard.
-        cold = {"mesh_pack": 1, "apply_ring": 1, "cold_packet": MESH_SHARDS,
+        # One K7 call and one K8 call per cold window cover all shards.
+        cold = {"mesh_pack": 1, "apply_ring": 1, "cold_packet": 1,
                 "pool_build": 1, "score_topk": 1, "merge_candidates": 1,
                 "placement_chain": 1, "warm_finish": 1}
         warm = {"score_topk": 1, "merge_candidates": 1, "placement_chain": 1,
@@ -1876,8 +1882,39 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
         "mesh_pack", K.mesh_pack, K.mesh_pack_plain, pack, 50, 20,
         n * (4 * r + 8 + 4 + 4 + 1) + n * (r + 5) * 4, 0,
         library=lambda: torch.cat(cols, dim=1))[0]
-    DEVICE_ONLY.append((f"mesh_pack at {n} rows", table["mesh_pack"]["ms"],
-                        lambda: K.mesh_pack(*pack), 50))
+    DEVICE_ONLY.extend([
+        (f"mesh_pack at {n} rows", table["mesh_pack"]["ms"],
+         lambda: K.mesh_pack(*pack), 50),
+        (f"torch.cat of mesh_pack's cast columns at {n} rows",
+         table["mesh_pack"]["library_ms"], lambda: torch.cat(cols, dim=1),
+         50)])
+    # K6 at row counts around its 256-row tile and at 2, 5 and 7 resource
+    # dimensions, and with a score_cap at an odd float offset (read as two
+    # floats, not a float2).
+    pack_cases = [(rows_k6, r_k6) for rows_k6 in (1, 255, 257, n)
+                  for r_k6 in (2, 5, 7)]
+    for rows_k6, r_k6 in pack_cases:
+        rng6 = np.random.default_rng(rows_k6 + r_k6)
+        args = tuple(torch.tensor(a, device=dev) for a in (
+            rng6.uniform(1e3, 4e3, (rows_k6, r_k6)).astype(np.float32),
+            rng6.uniform(8e2, 4e3, (rows_k6, 2)).astype(np.float32),
+            rng6.integers(0, 9, rows_k6).astype(np.int32),
+            (rng6.random(rows_k6) * 1e-3).astype(np.float32),
+            rng6.random(rows_k6) < 0.3))
+        check(_bits_equal(torch, K.mesh_pack(*args), K.mesh_pack_plain(*args)),
+              f"mesh mesh_pack at {rows_k6} rows, R={r_k6}: kernel and plain "
+              f"differ")
+        if rows_k6 == 257:
+            odd = torch.empty(2 * rows_k6 + 1, device=dev)[1:].view(rows_k6, 2)
+            odd.copy_(args[1])
+            args = (args[0], odd) + args[2:]
+            check(_bits_equal(torch, K.mesh_pack(*args),
+                              K.mesh_pack_plain(*args)),
+                  f"mesh mesh_pack at {rows_k6} rows, R={r_k6}, score_cap "
+                  f"at an odd offset: kernel and plain differ")
+    print(f"phase mesh mesh_pack: identical to plain bit for bit at (rows, "
+          f"R) {pack_cases} and with a score_cap at an odd float offset",
+          flush=True)
     # K7 over every shard's rows in one call (row_base 0, as a_cold and
     # apply_fn call it) against the per-shard plain versions laid end to
     # end: the final chain's ring (5 windows of winners), then 65,536-row
@@ -1917,29 +1954,128 @@ def mesh_phase(torch, gpu: str, dev, pin_launches=True):
                         f"as a cold window applies it",
                         table["apply_ring"]["ms"],
                         lambda: prog.apply_fn(last.usage, ring), 50))
-    # K8 on every shard of the cold window's input (the start usage).
+    # K8. The per-shard form (the entry at S = 1 with a row_base) on every
+    # shard of the cold window's input (the start usage) against the
+    # per-shard plain version.
     mask_s = [d["tg_masks"][:, s * n_loc:(s + 1) * n_loc]
               for s in range(MESH_SHARDS)]
-    for s in range(MESH_SHARDS):
-        rows = slice(s * n_loc, (s + 1) * n_loc)
-        args = (packed_table[rows], d["usage"][rows], mask_s[s],
-                d["key_demands"], 10.0, False, s * n_loc, b_buf)
+    k8_shards = [(packed_table[s * n_loc:(s + 1) * n_loc],
+                  d["usage"][s * n_loc:(s + 1) * n_loc], mask_s[s],
+                  d["key_demands"], 10.0, False, s * n_loc, b_buf)
+                 for s in range(MESH_SHARDS)]
+    for s, args in enumerate(k8_shards):
         check(all(_bits_equal(torch, a, b) for a, b in zip(
             K.cold_packet(*args), K.cold_packet_plain(*args))),
               f"mesh cold_packet shard {s}: kernel and plain differ")
     w = 6 + 2 * r + t
-    # Library yardstick for K8's selection: torch.topk of the shard's masked
-    # scores (its tie order is not the contract: time only).
-    masked_s0 = K.score_topk_plain(
-        d["capacity"][:n_loc], d["score_cap"][:n_loc], d["usage"][:n_loc],
-        mask_s[0].contiguous(), d["job_counts"][:n_loc], d["key_demands"],
-        d["noise"][:n_loc], 10.0, False, d["banned0"][:n_loc], b_buf)[0]
-    stage("cold_packet", K.cold_packet, K.cold_packet_plain,
-          (packed_table[:n_loc], d["usage"][:n_loc], mask_s[0],
-           d["key_demands"], 10.0, False, 0, b_buf), 20, 5,
-          n_loc * ((r + 5) * 4 + r * 4 + t) + t * b_buf * (w + 1) * 4 + t * 4,
-          t * n_loc * (3 * r + 20),
-          library=lambda: torch.topk(masked_s0, b_buf, dim=1, sorted=True))
+    # The all-shard call (absent from a package of the per-shard design)
+    # against the per-shard plain versions laid end to end: at the 1M-row
+    # window, at mesh-served's 16,384 rows (B = 2,048 = a whole shard) and
+    # at the certificate-miss shape (256 rows a shard, B = 128, four keys,
+    # distinct on); each twice through one select scratch, which the
+    # first call must leave fit for the second.
+    all_shard = getattr(K, "cold_packets", None)
+    k8_all = (packed_table, d["usage"], d["tg_masks"], d["key_demands"],
+              10.0, False, MESH_SHARDS, b_buf)
+    if all_shard is not None:
+        k8_work = K.cold_select_work(dev, MESH_SHARDS, t)
+        cold_cases = [("the 1M-row window", k8_all, k8_work)]
+        for label, rows_k8, t_k8, b_k8, distinct in (
+                ("mesh-served's 16,384 rows", 16384, 1, 2048, False),
+                ("the certificate-miss shape", 2048, 4, 128, True)):
+            wk = window_inputs(torch, dev, np.random.default_rng(rows_k8),
+                               rows_k8, t_k8)
+            tab = K.mesh_pack(wk["capacity"], wk["score_cap"],
+                              wk["job_counts0"], wk["noise"], wk["banned0"])
+            cold_cases.append((label, (tab, wk["usage"], wk["tg_masks"],
+                                       wk["key_demands"], 10.0, distinct,
+                                       MESH_SHARDS, b_k8),
+                               K.cold_select_work(dev, MESH_SHARDS, t_k8)))
+        for label, args, work in cold_cases:
+            want = K.cold_packets_plain(*args)
+            for _ in range(2):
+                check(all(_bits_equal(torch, a, b) for a, b in zip(
+                    all_shard(*args, work=work), want)),
+                      f"mesh cold_packet over all shards at {label}: kernel "
+                      f"and the per-shard plain versions differ")
+        print(f"phase mesh cold_packet: one call over all {MESH_SHARDS} "
+              f"shards identical to the per-shard plain versions laid end "
+              f"to end bit for bit at "
+              + ", ".join(label for label, _, _ in cold_cases)
+              + "; the per-shard form identical to its plain version on "
+              f"every shard", flush=True)
+        # The kernels line's row: the call a cold window makes. Library
+        # yardstick: torch.topk of every segment's masked scores, [S*T,
+        # n_loc] (its tie order is not the contract: time only).
+        masked_all = K.score_topk_plain(
+            d["capacity"], d["score_cap"], d["usage"], d["tg_masks"],
+            d["job_counts"], d["key_demands"], d["noise"], 10.0, False,
+            d["banned0"], b_buf)[0].view(t * MESH_SHARDS, n_loc)
+        stage("cold_packet", lambda *a: all_shard(*a, work=k8_work),
+              K.cold_packets_plain, k8_all, 20, 3,
+              n * ((r + 5) * 4 + r * 4 + t)
+              + MESH_SHARDS * t * (b_buf * (w + 1) * 4 + 4),
+              t * n * (3 * r + 20),
+              library=lambda: torch.topk(masked_all, b_buf, dim=1,
+                                         sorted=True))
+    else:
+        # A package of the per-shard design: its row is one shard's call.
+        masked_s0 = K.score_topk_plain(
+            d["capacity"][:n_loc], d["score_cap"][:n_loc],
+            d["usage"][:n_loc], mask_s[0].contiguous(),
+            d["job_counts"][:n_loc], d["key_demands"], d["noise"][:n_loc],
+            10.0, False, d["banned0"][:n_loc], b_buf)[0]
+        stage("cold_packet", K.cold_packet, K.cold_packet_plain,
+              k8_shards[0], 20, 5,
+              n_loc * ((r + 5) * 4 + r * 4 + t) + t * b_buf * (w + 1) * 4
+              + t * 4, t * n_loc * (3 * r + 20),
+              library=lambda: torch.topk(masked_s0, b_buf, dim=1,
+                                         sorted=True))
+
+    # K8 as a cold window issues it: one call per shard (the per-shard
+    # design) against one call over all shards, by events here and
+    # device-only last; and the whole cold stage (K7, K8, the exchange),
+    # which both designs run.
+    def k8_per_shard():
+        for a in k8_shards:
+            K.cold_packet(*a)
+
+    def cold_stage():
+        pkts, _, nfs, vals = prog.a_cold(
+            packed_table, d["usage"], d["tg_masks"], d["key_demands"], 10.0,
+            False, prog.ring_zero(r))
+        return prog.exchange(pkts, nfs, vals)
+
+    per_shard_ms = time_ms(torch, k8_per_shard, 20)
+    cold_stage_ms = time_ms(torch, cold_stage, 20)
+    all_ms = (time_ms(torch, lambda: all_shard(*k8_all, work=k8_work), 20)
+              if all_shard is not None else None)
+    print(f"phase mesh cold_packet at {n} rows: {MESH_SHARDS} per-shard "
+          f"calls {per_shard_ms:.4f} ms by events, one call over all shards "
+          f"{_fmt(all_ms)} ms; the cold stage (K7, K8, the exchange) "
+          f"{cold_stage_ms:.4f} ms", flush=True)
+    DEVICE_ONLY.extend([
+        (f"cold_packet a shard ({n_loc} rows, B={b_buf})",
+         time_ms(torch, lambda: K.cold_packet(*k8_shards[0]), 20),
+         lambda: K.cold_packet(*k8_shards[0]), 20),
+        (f"cold_packet per shard, {MESH_SHARDS} calls ({n} rows)",
+         per_shard_ms, k8_per_shard, 20),
+        (f"the cold stage (K7, K8, the exchange) at {n} rows",
+         cold_stage_ms, cold_stage, 20)])
+    if all_shard is not None:
+        DEVICE_ONLY.extend([
+            (f"cold_packet over all {MESH_SHARDS} shards, one call ({n} "
+             f"rows, B={b_buf})", all_ms,
+             lambda: all_shard(*k8_all, work=k8_work), 20),
+            (f"torch.topk of the {MESH_SHARDS} shards' scores "
+             f"[{t * MESH_SHARDS}, {n_loc}], k={b_buf}",
+             table["cold_packet"]["library_ms"],
+             lambda: torch.topk(masked_all, b_buf, dim=1, sorted=True), 20)])
+    else:
+        DEVICE_ONLY.append((
+            f"torch.topk of a shard's {n_loc} scores, k={b_buf}",
+            table["cold_packet"]["library_ms"],
+            lambda: torch.topk(masked_s0, b_buf, dim=1, sorted=True), 20))
     # K9 against its plain version on synthetic packets: T = 3 keys
     # sharing a shard's rows, S = 1, 2, 4, 8, B = 1, B = a whole shard, B
     # no power of two, rows repeated across shards, B = 8,192 (k = 4,096),

@@ -3,16 +3,23 @@
 //
 // The mesh's S shards are logical shards: row slices of the node tables, each
 // on its shard's device. A cold window runs K7 once over every shard's rows
-// and K8 once per shard over that shard's rows only, the per-shard packets
-// meet on the lead device, and K9 merges them into the resident candidate
-// pool; every window (cold or warm) then runs K2, K3 and K4a over the pool
-// taken as a table and K10 for the rest of the reference's warm step.
+// and K8 once over every shard, each shard's packet from its own rows only,
+// the packets meet on the lead device, and K9 merges them into the resident
+// candidate pool; every window (cold or warm) then runs K2, K3 and K4a over
+// the pool taken as a table and K10 for the rest of the reference's warm
+// step.
 //
 //   K6 nomad_mesh_pack     replaces pack_fn (:745-756): capacity [N,R],
 //                          score_cap [N,2], counts i32, noise, banned bool ->
-//                          the packed node-static table f32 [N, R+5]. One
-//                          thread per row. Bound: bytes (37 in, 40 out per
-//                          row at R = 5).
+//                          the packed node-static table f32 [N, R+5]. A
+//                          coalesced tile copy: one block stages a tile of
+//                          256 rows in shared memory (capacity read as the
+//                          tile's contiguous rows * R floats, score_cap as
+//                          float2, counts, noise and banned one per thread)
+//                          and writes the tile's contiguous rows * (R+5)
+//                          floats as 16-byte vectors, scalars only past the
+//                          last whole vector. Bound: bytes (37 in, 40 out
+//                          per row at R = 5).
 //   K7 nomad_apply_ring    replaces _apply_ring / apply_ring_full (:758-775,
 //                          :964-967): last-write-wins scatter of the pending
 //                          winner ring [cap, 1+R] into usage [n, R] rows
@@ -31,17 +38,25 @@
 //                          wrote, so no fill pass runs. Bound: bytes (the
 //                          usage read and written once, the ring's row
 //                          column read once).
-//   K8 nomad_cold_packet   replaces a_cold (:777-817): one shard's masked
-//                          score per key [T, n_loc] read from the packed
-//                          table (the K1/K2 arithmetic), its feasible count,
-//                          the top-B rows per key by (score desc, row asc)
-//                          through K2's select and rank (select.cuh: a radix
-//                          select spread over the card), then
-//                          the packet [T*B, W = 6+2R+T] in the reference's
-//                          column layout and the top-B values [T, B]. Bound:
-//                          bytes (the shard's table, usage and masks once);
-//                          the select's launches set its time at 131,072
-//                          rows a shard.
+//   K8 nomad_cold_packet   replaces a_cold (:777-817): one call over the S
+//                          logical shards of n_loc rows each (S = 1 with a
+//                          row_base is one shard's stage, kept for a mesh
+//                          over several cards). The masked score per key
+//                          [T, S n_loc] read from the packed table (the
+//                          K1/K2 arithmetic) in one pass; read as [T S,
+//                          n_loc], segment g = t S + s is exactly shard s's
+//                          rows of key t, so K2's select and rank
+//                          (select.cuh: a radix select spread over the
+//                          card) take each segment's feasible count and
+//                          top-B rows by (score desc, local row asc), as a
+//                          per-shard call would; then the packets [S T B,
+//                          W = 6+2R+T] in the reference's column layout,
+//                          the feasible counts [S, T] and the top-B values
+//                          [S, T, B], written straight in the exchange's
+//                          (shard, key, b) order. Seven launches a call
+//                          (eight when B is over the select's 4,096-key
+//                          sort). Bound: bytes (the table, usage and masks
+//                          once).
 //   K9 nomad_pool_build    replaces pool_build (:819-836): the S*T*B packet
 //                          rows in ascending (global row, position) order,
 //                          first-occurrence keep, pool_use, tau[t] = max_s
@@ -103,6 +118,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlockThreads = 1024;
+constexpr int kPackRows = 256;       // K6: rows a block stages
 constexpr int kApplyRows = 256;      // K7's write pass: rows per block
 constexpr int kSmemSortKeys = 16384;  // K9 sorts a segment in shared memory up to this
 constexpr int kSearchLanes = 8;       // K9: segments searched side by side
@@ -115,22 +131,55 @@ inline unsigned int blocks_for(int64_t n) {
 
 // ------------------------------------------------------------------ K6
 
-__global__ void k6_pack(const float* __restrict__ capacity,
-                        const float* __restrict__ score_cap,
-                        const int32_t* __restrict__ counts,
-                        const float* __restrict__ noise,
-                        const uint8_t* __restrict__ banned, int n, int r_dims,
-                        float* __restrict__ table) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// One block per tile of `tile` rows (a multiple of 4): the tile's rows
+// staged in shared memory as [rows, R + 5], capacity read as its
+// contiguous rows * R floats, score_cap as float2 (two floats when vec_sc
+// is 0), the rest one per thread; then the tile's contiguous rows * (R + 5)
+// floats written out, as 16-byte vectors when vec_out (the table 16-byte
+// aligned; every tile starts on a vector, since tile is a multiple of 4)
+// and as scalars past the last whole vector.
+__global__ void __launch_bounds__(kThreads) k6_pack(
+    const float* __restrict__ capacity, const float* __restrict__ score_cap,
+    const int32_t* __restrict__ counts, const float* __restrict__ noise,
+    const uint8_t* __restrict__ banned, int n, int r_dims, int tile,
+    int vec_sc, int vec_out, float* __restrict__ table) {
+  extern __shared__ float4 stage4[];
+  float* stage = reinterpret_cast<float*>(stage4);
   const int w = r_dims + 5;
-  float* out = table + i * w;
-  for (int k = 0; k < r_dims; ++k) out[k] = capacity[i * r_dims + k];
-  out[r_dims] = score_cap[2 * i];
-  out[r_dims + 1] = score_cap[2 * i + 1];
-  out[r_dims + 2] = static_cast<float>(counts[i]);
-  out[r_dims + 3] = noise[i];
-  out[r_dims + 4] = banned[i] ? 1.0f : 0.0f;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int rows = static_cast<int>(n - row0 < tile ? n - row0 : tile);
+  const float* cap = capacity + row0 * r_dims;
+  const int n_cap = rows * r_dims;
+  for (int e = threadIdx.x; e < n_cap; e += blockDim.x) {
+    const int j = e / r_dims;
+    stage[j * w + (e - j * r_dims)] = cap[e];
+  }
+  for (int j = threadIdx.x; j < rows; j += blockDim.x) {
+    const int64_t i = row0 + j;
+    float* out = stage + j * w + r_dims;
+    if (vec_sc) {
+      const float2 v = reinterpret_cast<const float2*>(score_cap)[i];
+      out[0] = v.x;
+      out[1] = v.y;
+    } else {
+      out[0] = score_cap[2 * i];
+      out[1] = score_cap[2 * i + 1];
+    }
+    out[2] = static_cast<float>(counts[i]);
+    out[3] = noise[i];
+    out[4] = banned[i] ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  const int n_el = rows * w;
+  float* dst = table + row0 * w;
+  int e0 = 0;
+  if (vec_out) {
+    const int n_vec = n_el >> 2;
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int v = threadIdx.x; v < n_vec; v += blockDim.x) dst4[v] = stage4[v];
+    e0 = n_vec << 2;
+  }
+  for (int e = e0 + threadIdx.x; e < n_el; e += blockDim.x) dst[e] = stage[e];
 }
 
 // ------------------------------------------------------------------ K7
@@ -178,20 +227,23 @@ __global__ void k7_write(const float* __restrict__ usage,
 
 // ------------------------------------------------------------------ K8
 
-// One thread per (key, shard row): K2's window-start score pass, reading
-// capacity, score_cap, the count, noise and the ban from the packed table.
+// One thread per (key, row) over every shard's rows: K2's window-start
+// score pass, reading capacity, score_cap, the count, noise and the ban
+// from the packed table. Block x of key t also starts the select of
+// segments t S + s for s = x, x + gridDim.x, ...
 __global__ void k8_score(const float* __restrict__ table,
                          const float* __restrict__ usage,
                          const uint8_t* __restrict__ masks, int64_t mask_ld,
                          const float* __restrict__ key_demands, float penalty,
-                         int distinct, int n_loc, int r_dims,
-                         float* __restrict__ masked0,
+                         int distinct, int n, int n_loc, int n_shards,
+                         int r_dims, float* __restrict__ masked0,
                          SelectState* __restrict__ sel_states,
                          unsigned int* __restrict__ sel_hist, int b_buf) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const int t = blockIdx.y;
-  if (blockIdx.x == 0) select_init(sel_states, sel_hist, t, n_loc, b_buf);
-  if (row >= n_loc) return;
+  for (int s = blockIdx.x; s < n_shards; s += gridDim.x)
+    select_init(sel_states, sel_hist, t * n_shards + s, n_loc, b_buf);
+  if (row >= n) return;
   const int w = r_dims + 5;
   const float* tab = table + static_cast<int64_t>(row) * w;
   const float* use = usage + static_cast<int64_t>(row) * r_dims;
@@ -206,28 +258,38 @@ __global__ void k8_score(const float* __restrict__ table,
                                      tab[r_dims + 1]);
     s = adjusted_score(base, tab[r_dims + 2], penalty, tab[r_dims + 3]);
   }
-  masked0[static_cast<int64_t>(t) * n_loc + row] = s;
+  masked0[static_cast<int64_t>(t) * n + row] = s;
 }
 
-// One thread per packet row (t, b): the reference's column layout
-// [row, capacity(R), score_cap(2), usage(R), counts, banned, noise, elig(T)].
+// One thread per packet row i = (s T + t) B + b, the exchange's order: the
+// b-th selected local row of segment g = t S + s, its columns in the
+// reference's layout [row, capacity(R), score_cap(2), usage(R), counts,
+// banned, noise, elig(T)], its value, and (b = 0) the segment's feasible
+// count at nf_all[s, t].
 __global__ void k8_packet(const float* __restrict__ table,
                           const float* __restrict__ usage,
                           const uint8_t* __restrict__ masks, int64_t mask_ld,
                           const float* __restrict__ masked0,
-                          const int32_t* __restrict__ cand, int n_keys,
-                          int n_loc, int b_buf, int r_dims, int row_base,
-                          float* __restrict__ pkt, float* __restrict__ vals) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_keys * b_buf) return;
-  const int t = i / b_buf;
-  const int lr = cand[i];
+                          const int32_t* __restrict__ cand,
+                          const int32_t* __restrict__ nf_sel, int n_keys,
+                          int n_shards, int n, int n_loc, int b_buf,
+                          int r_dims, int row_base, float* __restrict__ pkt,
+                          int32_t* __restrict__ nf_all,
+                          float* __restrict__ vals) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<int64_t>(n_shards) * n_keys * b_buf) return;
+  const int st = static_cast<int>(i / b_buf);
+  const int b = static_cast<int>(i - static_cast<int64_t>(st) * b_buf);
+  const int s = st / n_keys;
+  const int t = st - s * n_keys;
+  const int g = t * n_shards + s;
+  const int row = s * n_loc + cand[static_cast<int64_t>(g) * b_buf + b];
   const int w_tab = r_dims + 5;
   const int w = 6 + 2 * r_dims + n_keys;
-  const float* tab = table + static_cast<int64_t>(lr) * w_tab;
-  const float* use = usage + static_cast<int64_t>(lr) * r_dims;
-  float* out = pkt + static_cast<int64_t>(i) * w;
-  out[0] = static_cast<float>(lr + row_base);
+  const float* tab = table + static_cast<int64_t>(row) * w_tab;
+  const float* use = usage + static_cast<int64_t>(row) * r_dims;
+  float* out = pkt + i * w;
+  out[0] = static_cast<float>(row + row_base);
   for (int k = 0; k < r_dims; ++k) out[1 + k] = tab[k];
   out[1 + r_dims] = tab[r_dims];
   out[2 + r_dims] = tab[r_dims + 1];
@@ -237,8 +299,9 @@ __global__ void k8_packet(const float* __restrict__ table,
   out[5 + 2 * r_dims] = tab[r_dims + 3];
   for (int q = 0; q < n_keys; ++q)
     out[6 + 2 * r_dims + q] =
-        masks[static_cast<int64_t>(q) * mask_ld + lr] != 0 ? 1.0f : 0.0f;
-  vals[i] = masked0[static_cast<int64_t>(t) * n_loc + lr];
+        masks[static_cast<int64_t>(q) * mask_ld + row] != 0 ? 1.0f : 0.0f;
+  vals[i] = masked0[static_cast<int64_t>(t) * n + row];
+  if (b == 0) nf_all[st] = nf_sel[g];
 }
 
 // ------------------------------------------------------------------ K9
@@ -497,10 +560,21 @@ int nomad_mesh_pack(const float* capacity, const float* score_cap,
                     const int32_t* counts, const float* noise,
                     const uint8_t* banned, int n, int r_dims, float* table,
                     cudaStream_t stream) {
-  if (n > 0)
-    k6_pack<<<blocks_for(n), kThreads, 0, stream>>>(capacity, score_cap, counts,
-                                                    noise, banned, n, r_dims,
-                                                    table);
+  const int w = r_dims + 5;
+  int tile = kPackRows;
+  while (tile > 4 && static_cast<size_t>(tile) * w * sizeof(float) > 48 * 1024)
+    tile >>= 1;
+  if (r_dims < 1 || static_cast<size_t>(tile) * w * sizeof(float) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    const int vec_sc = reinterpret_cast<uintptr_t>(score_cap) % 8 == 0;
+    const int vec_out = reinterpret_cast<uintptr_t>(table) % 16 == 0;
+    const unsigned int blocks =
+        static_cast<unsigned int>((static_cast<int64_t>(n) + tile - 1) / tile);
+    k6_pack<<<blocks, kThreads, tile * w * sizeof(float), stream>>>(
+        capacity, score_cap, counts, noise, banned, n, r_dims, tile, vec_sc,
+        vec_out, table);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -525,30 +599,38 @@ int nomad_apply_ring(const float* usage, const float* ring, int ring_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8. One shard: table [n_loc, r_dims + 5], usage [n_loc, r_dims], masks
-// [n_keys, n_loc] at row stride mask_ld (a column slice of [T, N]); outputs
-// pkt [n_keys * b_buf, 6 + 2 r_dims + n_keys], nf0 [n_keys], vals [n_keys,
-// b_buf]; masked0 [n_keys, n_loc], unordered and cand [n_keys, b_buf] and
-// work (nomad_select_work_bytes(n_keys) bytes) are scratch.
+// K8. S = n_shards shards of n_loc rows, rows [s n_loc, (s + 1) n_loc) of
+// table [S n_loc, r_dims + 5], usage [S n_loc, r_dims] and masks [n_keys,
+// S n_loc] (row stride mask_ld). Outputs, in the exchange's layout: pkt
+// [S n_keys b_buf, 6 + 2 r_dims + n_keys] in (shard, key, b) order whose
+// row column is row_base + the row, nf_all [S, n_keys] i32 and vals [S,
+// n_keys, b_buf]. Scratch: masked0 [n_keys, S n_loc], nf_sel [n_keys S],
+// unordered and cand [n_keys S, b_buf], and work
+// (nomad_select_work_bytes(n_keys S) bytes), which the call initializes.
 int nomad_cold_packet(const float* table, const float* usage,
                       const uint8_t* masks, int64_t mask_ld,
                       const float* key_demands, float penalty, int distinct,
-                      int n_loc, int r_dims, int n_keys, int b_buf,
-                      int row_base, float* masked0, int32_t* unordered,
-                      int32_t* cand, float* pkt, int32_t* nf0, float* vals,
-                      void* work, cudaStream_t stream) {
-  if (r_dims < 2 || b_buf < 1 || b_buf > n_loc)
+                      int n_loc, int n_shards, int r_dims, int n_keys,
+                      int b_buf, int row_base, float* masked0, int32_t* nf_sel,
+                      int32_t* unordered, int32_t* cand, float* pkt,
+                      int32_t* nf_all, float* vals, void* work,
+                      cudaStream_t stream) {
+  const int64_t n = static_cast<int64_t>(n_loc) * n_shards;
+  const int64_t n_seg = static_cast<int64_t>(n_keys) * n_shards;
+  if (r_dims < 2 || n_keys < 1 || n_shards < 1 || b_buf < 1 ||
+      b_buf > n_loc || n > INT32_MAX || n_seg > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const SelectWork sw = select_work(work, n_keys);
-  dim3 score_grid(blocks_for(n_loc), n_keys);
+  const SelectWork sw = select_work(work, static_cast<int>(n_seg));
+  dim3 score_grid(blocks_for(n), n_keys);
   k8_score<<<score_grid, kThreads, 0, stream>>>(
-      table, usage, masks, mask_ld, key_demands, penalty, distinct, n_loc,
-      r_dims, masked0, sw.states, sw.hist, b_buf);
-  launch_select(masked0, n_loc, n_keys, b_buf, work, nf0, unordered, cand,
-                stream);
-  k8_packet<<<blocks_for(static_cast<int64_t>(n_keys) * b_buf), kThreads, 0,
-              stream>>>(table, usage, masks, mask_ld, masked0, cand, n_keys,
-                        n_loc, b_buf, r_dims, row_base, pkt, vals);
+      table, usage, masks, mask_ld, key_demands, penalty, distinct,
+      static_cast<int>(n), n_loc, n_shards, r_dims, masked0, sw.states,
+      sw.hist, b_buf);
+  launch_select(masked0, n_loc, static_cast<int>(n_seg), b_buf, work, nf_sel,
+                unordered, cand, stream);
+  k8_packet<<<blocks_for(n_seg * b_buf), kThreads, 0, stream>>>(
+      table, usage, masks, mask_ld, masked0, cand, nf_sel, n_keys, n_shards,
+      static_cast<int>(n), n_loc, b_buf, r_dims, row_base, pkt, nf_all, vals);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,7 +58,10 @@ constexpr int kFinishThreads = 1024;
 constexpr int kFinishBits = 8;            // the finish's digit
 constexpr unsigned kSelFull = 0xffffffffu;
 
-struct SelectState {
+// One 128-byte line per key: K8 selects S*T segments in one call, and its
+// compaction's per-warp atomics on n_out, n_cand and nf would otherwise
+// meet on the few lines that hold every segment's counters.
+struct alignas(128) SelectState {
   unsigned long long prefix;  // resolved high bits of the kc-th key
   int lo;                     // lowest resolved bit; 64 before any pass
   int k_rem;                  // keys still to take among those in play

@@ -157,8 +157,8 @@ _SIGNATURES = {
     "nomad_compact_window": [_P, _P, _P, _I, _I] + [_P] * 4 + [_P],
     "nomad_mesh_pack": [_P] * 5 + [_I, _I, _P, _P],
     "nomad_apply_ring": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "nomad_cold_packet": [_P, _P, _P, _L, _P, _F, _I, _I, _I, _I, _I, _I]
-    + [_P] * 7 + [_P],
+    "nomad_cold_packet": [_P, _P, _P, _L, _P, _F] + [_I] * 7 + [_P] * 8
+    + [_P],
     "nomad_pool_build": [_P, _I, _I, _I, _P, _P, _I, _I, _I] + [_P] * 12
     + [_P],
     "nomad_warm_finish": [_P] * 11 + [_I, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -9,8 +9,9 @@ programs become hand-written CUDA kernels in `csrc/`:
   K4a sequential placement chain (scan and replay modes) -> `placement_chain`
   K5  a window's results compacted for the host copy -> `compact_window`
   K6-K10 the shard-local keyed mesh pipeline (csrc/mesh.cu): `mesh_pack`,
-      `apply_ring`, `cold_packet`, `pool_build`, `warm_finish`, composed by
-      `_MeshKeyedProgram` with K2-K4a into `_place_batch_keyed_mesh`
+      `apply_ring`, `cold_packets` (one shard: `cold_packet`), `pool_build`,
+      `warm_finish`, composed by `_MeshKeyedProgram` with K2-K4a into
+      `_place_batch_keyed_mesh`
 
 `place_batch`, `place_batch_multi` and `place_batch_keyed` keep the
 reference's signatures and output layout and are built from those stages.
@@ -41,7 +42,6 @@ import numpy as np
 import torch
 
 from nomad_tpu_torch import native
-from nomad_tpu_torch.parallel.mesh import node_shards
 from nomad_tpu_torch.resilience import failpoints
 
 _LOG2_10 = float(np.log2(10.0))
@@ -662,16 +662,9 @@ def apply_ring(usage, ring, row_base: int, out=None, pos=None):
 # ---------------------------------------------------------------- K8
 
 
-def cold_packet_plain(table, usage, tg_masks, key_demands, penalty: float,
-                      distinct: bool, row_base: int, b_buf: int):
-    """One shard's cold stage after its ring apply (reference: a_cold):
-    the masked window-start score per key over the shard's n_loc rows, read
-    from the packed table; nf0 [T] int32 (feasible rows); the top-B rows per
-    key by (score desc, row asc) as lax.top_k orders them; and the packet
-    [T*B, 6 + 2R + T] f32 = [global row, capacity, score_cap, usage, counts,
-    banned, noise, eligibility per key] with the top-B values [T, B] f32.
-    tg_masks is the shard's column slice [T, n_loc] of the [T, N] masks."""
-    native.PLAIN_CALLS["cold_packet"] += 1
+def _cold_shard(table, usage, tg_masks, key_demands, penalty: float,
+                distinct: bool, row_base: int, b_buf: int):
+    """cold_packet_plain's body, uncounted (see there)."""
     r = usage.shape[1]
     capacity = table[:, :r]
     score_cap = table[:, r:r + 2]
@@ -699,43 +692,119 @@ def cold_packet_plain(table, usage, tg_masks, key_demands, penalty: float,
     return pkt, nf0, vals
 
 
-def cold_packet(table, usage, tg_masks, key_demands, penalty: float,
-                distinct: bool, row_base: int, b_buf: int):
-    """K8 (csrc/mesh.cu). See cold_packet_plain for the contract."""
-    if not _on_cuda(table, usage, tg_masks, key_demands):
-        return cold_packet_plain(table, usage, tg_masks, key_demands, penalty,
-                                 distinct, row_base, b_buf)
-    n_loc, r = usage.shape
+def cold_packet_plain(table, usage, tg_masks, key_demands, penalty: float,
+                      distinct: bool, row_base: int, b_buf: int):
+    """One shard's cold stage after its ring apply (reference: a_cold):
+    the masked window-start score per key over the shard's n_loc rows, read
+    from the packed table; nf0 [T] int32 (feasible rows); the top-B rows per
+    key by (score desc, row asc) as lax.top_k orders them; and the packet
+    [T*B, 6 + 2R + T] f32 = [global row, capacity, score_cap, usage, counts,
+    banned, noise, eligibility per key] with the top-B values [T, B] f32.
+    tg_masks is the shard's column slice [T, n_loc] of the [T, N] masks."""
+    native.PLAIN_CALLS["cold_packet"] += 1
+    return _cold_shard(table, usage, tg_masks, key_demands, penalty,
+                       distinct, row_base, b_buf)
+
+
+def cold_packets_plain(table, usage, tg_masks, key_demands, penalty: float,
+                       distinct: bool, n_shards: int, b_buf: int):
+    """The cold stage of all S logical shards in one call: the per-shard
+    cold_packet_plain of every shard s (rows [s n_loc, (s+1) n_loc) of the
+    [N, ...] inputs, row_base s n_loc) laid end to end in the exchange's
+    layout. Returns (packets [S*T*B, W] in (shard, key, b) order, nf_all
+    [S, T] int32, vals_all [S, T, B] f32)."""
+    native.PLAIN_CALLS["cold_packet"] += 1
+    n_loc = usage.shape[0] // n_shards
+    outs = [_cold_shard(table[q * n_loc:(q + 1) * n_loc],
+                        usage[q * n_loc:(q + 1) * n_loc],
+                        tg_masks[:, q * n_loc:(q + 1) * n_loc], key_demands,
+                        penalty, distinct, q * n_loc, b_buf)
+            for q in range(n_shards)]
+    return (torch.cat([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]))
+
+
+def cold_select_work(device: torch.device, n_shards: int,
+                     n_keys: int) -> torch.Tensor:
+    """K8's select scratch for S shards of T keys (S*T segments): every
+    call initializes what it reads, so one buffer serves any number of
+    calls that run one after another."""
+    n = native.library().nomad_select_work_bytes(n_shards * n_keys)
+    return torch.empty(n, dtype=torch.uint8, device=device)
+
+
+def _cold_launch(table, usage, tg_masks, key_demands, penalty: float,
+                 distinct: bool, n_shards: int, row_base: int, b_buf: int,
+                 work):
+    """K8 over S = n_shards shards of the [S n_loc, ...] inputs: (pkt
+    [S*T*B, W], nf_all [S, T], vals [S, T, B]), packet rows carrying
+    row_base + their row."""
+    n, r = usage.shape
     t = key_demands.shape[0]
-    _need(table, torch.float32, (n_loc, r + 5), "table")
-    _need(usage, torch.float32, (n_loc, r), "usage")
+    _need(table, torch.float32, (n, r + 5), "table")
+    _need(usage, torch.float32, (n, r), "usage")
     _need(key_demands, torch.float32, (t, r), "key_demands")
-    if (tg_masks.dtype != torch.bool or tuple(tg_masks.shape) != (t, n_loc)
+    if (tg_masks.dtype != torch.bool or tuple(tg_masks.shape) != (t, n)
             or tg_masks.stride(1) != 1):
-        raise ValueError(f"tg_masks: want bool ({t}, {n_loc}) with unit row "
+        raise ValueError(f"tg_masks: want bool ({t}, {n}) with unit row "
                          f"stride, got {tg_masks.dtype} "
                          f"{tuple(tg_masks.shape)} {tg_masks.stride()}")
+    if n_shards < 1 or n % n_shards:
+        raise ValueError(f"cold_packet: {n} rows in {n_shards} shards")
+    n_loc = n // n_shards
     if not 1 <= b_buf <= n_loc:
         raise ValueError(f"cold_packet: B = {b_buf} outside [1, {n_loc}]")
     dev = usage.device
     w = 6 + 2 * r + t
-    masked0 = torch.empty((t, n_loc), dtype=torch.float32, device=dev)
-    unordered = torch.empty((t, b_buf), dtype=torch.int32, device=dev)
-    cand = torch.empty((t, b_buf), dtype=torch.int32, device=dev)
-    pkt = torch.empty((t * b_buf, w), dtype=torch.float32, device=dev)
-    nf0 = torch.empty(t, dtype=torch.int32, device=dev)
-    vals = torch.empty((t, b_buf), dtype=torch.float32, device=dev)
-    lib = native.library()
-    work = torch.empty(lib.nomad_select_work_bytes(t), dtype=torch.uint8,
-                       device=dev)
+    n_seg = n_shards * t
+    # Outputs and scratch as views of one buffer per dtype: the wrapper's
+    # host time is mostly tensor creation.
+    pkt, vals, masked0 = torch.empty(
+        n_seg * b_buf * (w + 1) + t * n, dtype=torch.float32,
+        device=dev).split([n_seg * b_buf * w, n_seg * b_buf, t * n])
+    nf_all, nf_sel, unordered, cand = torch.empty(
+        n_seg * (2 + 2 * b_buf), dtype=torch.int32, device=dev).split(
+            [n_seg, n_seg, n_seg * b_buf, n_seg * b_buf])
+    if work is None:
+        work = cold_select_work(dev, n_shards, t)
     p = native.ptr
-    err = lib.nomad_cold_packet(
+    err = native.library().nomad_cold_packet(
         p(table), p(usage), p(_u8(tg_masks)), tg_masks.stride(0),
-        p(key_demands), float(penalty), int(bool(distinct)), n_loc, r, t,
-        b_buf, int(row_base), p(masked0), p(unordered), p(cand), p(pkt),
-        p(nf0), p(vals), p(work), native.stream(dev))
+        p(key_demands), float(penalty), int(bool(distinct)), n_loc, n_shards,
+        r, t, b_buf, int(row_base), p(masked0), p(nf_sel), p(unordered),
+        p(cand), p(pkt), p(nf_all), p(vals), p(work), native.stream(dev))
     native.check("cold_packet", err)
-    return pkt, nf0, vals
+    return (pkt.view(n_seg * b_buf, w), nf_all.view(n_shards, t),
+            vals.view(n_shards, t, b_buf))
+
+
+def cold_packet(table, usage, tg_masks, key_demands, penalty: float,
+                distinct: bool, row_base: int, b_buf: int):
+    """K8 (csrc/mesh.cu) on one shard: the all-shard entry at S = 1 with a
+    row_base (the form a mesh over several cards would call per card). See
+    cold_packet_plain for the contract."""
+    if not _on_cuda(table, usage, tg_masks, key_demands):
+        return cold_packet_plain(table, usage, tg_masks, key_demands, penalty,
+                                 distinct, row_base, b_buf)
+    pkt, nf_all, vals = _cold_launch(table, usage, tg_masks, key_demands,
+                                     penalty, distinct, 1, row_base, b_buf,
+                                     None)
+    return pkt, nf_all[0], vals[0]
+
+
+def cold_packets(table, usage, tg_masks, key_demands, penalty: float,
+                 distinct: bool, n_shards: int, b_buf: int, work=None):
+    """K8 (csrc/mesh.cu) over all S logical shards in one call. See
+    cold_packets_plain for the contract. `work` is the select's scratch
+    (cold_select_work(device, S, T)); the mesh program keeps one and
+    launches under its lock, since two calls' launches sharing it must not
+    interleave. None: a new one."""
+    if not _on_cuda(table, usage, tg_masks, key_demands, work):
+        return cold_packets_plain(table, usage, tg_masks, key_demands,
+                                  penalty, distinct, n_shards, b_buf)
+    return _cold_launch(table, usage, tg_masks, key_demands, penalty,
+                        distinct, n_shards, 0, b_buf, work)
 
 
 # ---------------------------------------------------------------- K9
@@ -983,6 +1052,7 @@ class _MeshKeyedProgram:
         self._tables: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._ring_zero: dict = {}
         self._ring_pos: dict = {}
+        self._cold_work: dict = {}
 
     # Each stage picks kernels or, for a comparison run, plain versions.
     @staticmethod
@@ -1024,36 +1094,39 @@ class _MeshKeyedProgram:
         """The cold shard-local stage (reference: a_cold under shard_map):
         K7 applies the ring to every shard's usage rows in one call (into
         the new usage tail: the shards share one device, and a ring entry's
-        row belongs to one shard), then per shard K8 scores only its rows
-        of that tail and emits its packet. Returns (packets per shard,
-        usage tail [N, R], nf0 per shard, top-B values per shard); each
-        shard's outputs on its device."""
-        cold_k = self._k(cold_packet, cold_packet_plain)
+        row belongs to one shard), then one K8 call scores every shard's
+        rows of that tail and emits each shard's packet from its own rows
+        only. Returns (packets [S*T*B, W], usage tail [N, R], nf0 [S, T],
+        top-B values [S, T, B]): the exchange's layout, on the mesh's
+        device. K8's select scratch is the program's, one per S*T, used
+        under its lock as K7's is."""
         n = usage.shape[0]
         n_loc = n // self.n_shards
         b_buf = min(_MESH_BUF_MULT * self.k_cand, n_loc)
         usage_tail = self.apply_fn(usage, ring)
-        pkts, nfs, vals = [], [], []
-        mesh = self.mesh
-        for s, (tab_s, mask_s, tail_s) in enumerate(zip(
-                node_shards(mesh, table), node_shards(mesh, tg_masks, dim=1),
-                node_shards(mesh, usage_tail))):
-            pkt, nf0, top = cold_k(tab_s, tail_s, mask_s,
-                                   key_demands.to(mesh.devices[s]), penalty,
-                                   distinct, s * n_loc, b_buf)
-            pkts.append(pkt)
-            nfs.append(nf0)
-            vals.append(top)
-        return pkts, usage_tail, nfs, vals
+        args = (table, usage_tail, tg_masks, key_demands.to(self.device),
+                penalty, distinct, self.n_shards, b_buf)
+        if native.plain_on_card:
+            cand, nf_all, vals_all = cold_packets_plain(*args)
+        else:
+            n_seg = self.n_shards * key_demands.shape[0]
+            with self._lock:
+                work = None
+                if usage_tail.is_cuda:
+                    work = self._cold_work.get(n_seg)
+                    if work is None:
+                        work = cold_select_work(self.device, self.n_shards,
+                                                key_demands.shape[0])
+                        self._cold_work[n_seg] = work
+                cand, nf_all, vals_all = cold_packets(*args, work=work)
+        return cand, usage_tail, nf_all, vals_all
 
-    def exchange(self, pkts, nfs, vals):
-        """The winner-row exchange: every shard's packet, feasible counts
-        and top-B values to the lead device, as [S*T*B, W], [S, T] and
-        [S, T, B] (a same-device copy on logical shards)."""
+    def exchange(self, cand, nf_all, vals_all):
+        """The winner-row exchange: the packets [S*T*B, W], feasible counts
+        [S, T] and top-B values [S, T, B], already in the exchange's layout,
+        to the lead device (no copy on logical shards of one card)."""
         dev0 = self.dev0
-        return (torch.cat([p.to(dev0) for p in pkts]),
-                torch.stack([x.to(dev0) for x in nfs]),
-                torch.stack([v.to(dev0) for v in vals]))
+        return cand.to(dev0), nf_all.to(dev0), vals_all.to(dev0)
 
     def pool_build(self, cand, nf_all, vals_all, key_demands) -> PoolState:
         return self._k(pool_build, pool_build_plain)(cand, nf_all, vals_all,
@@ -1239,8 +1312,7 @@ def mesh_collective_audit(mesh, k_cand: int, n_rows: int = 512,
     table = prog.pack_fn(cap, sc, counts, noise, banned)
     pkts, tail, nfs, vals = prog.a_cold(table, usage, masks, kd, 10.0, False,
                                         ring0)
-    for s, shard_dev in enumerate(mesh.devices):
-        on(shard_dev, pkts[s], nfs[s], vals[s], node_shards(mesh, tail)[s])
+    on(dev, pkts, nfs, vals, tail)
     after = runs()
     launches["cold"] = {k: after[k] - before[k] for k in after
                         if after[k] != before[k]}

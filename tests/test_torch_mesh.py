@@ -217,11 +217,12 @@ def test_cold_stage_matches_reference(jax_mesh, distinct):
         p.table, p.d["usage"], p.d["tg_masks"], p.d["key_demands"],
         float(PEN), distinct, _t(ring))
     b = 128  # min(2k, n_loc)
-    assert len(pkts) == SHARDS and pkts[0].shape == (t * b, 6 + 10 + t)
-    np.testing.assert_array_equal(np.asarray(pkt), torch.cat(pkts).numpy())
+    # One call over every shard, already in the exchange's layout.
+    assert pkts.shape == (SHARDS * t * b, 6 + 10 + t)
+    np.testing.assert_array_equal(np.asarray(pkt), pkts.numpy())
     np.testing.assert_array_equal(np.asarray(usage_tail), tail.numpy())
-    np.testing.assert_array_equal(np.asarray(nf), torch.stack(nfs).numpy())
-    _scores_close(np.asarray(vals), torch.stack(tvals).numpy())
+    np.testing.assert_array_equal(np.asarray(nf), nfs.numpy())
+    _scores_close(np.asarray(vals), tvals.numpy())
     # The exchange lands every shard's packet on the lead device.
     cand, nf_all, vals_all = p.prog.exchange(pkts, nfs, tvals)
     assert cand.shape == (SHARDS * t * b, 18)
@@ -560,6 +561,164 @@ def test_all_shard_ring_apply_matches_per_shard_and_reference(
         np.testing.assert_array_equal(whole, usage)
 
 
+# ------------------------------------------ K6 and K8 as the card runs them
+
+
+def _k6_model(capacity, score_cap, counts, noise, banned, tile=256):
+    """K6's tile copy (csrc/mesh.cu k6_pack) in numpy. Per tile of `tile`
+    rows a staging buffer [rows, R + 5] takes capacity's contiguous rows * R
+    floats (flat index e to row e // R, column e % R), then score_cap's
+    pairs, counts, noise and banned per row; the tile's floats go out flat,
+    whole 16-byte vectors first (each tile starts on one) and scalars past
+    the last. Every output float must be written exactly once."""
+    n, r = capacity.shape
+    w = r + 5
+    out = np.zeros(n * w, np.float32)
+    writes = np.zeros(n * w, np.int64)
+    for row0 in range(0, n, tile):
+        rows = min(tile, n - row0)
+        stage = np.full(rows * w, np.nan, np.float32)
+        e = np.arange(rows * r)
+        stage[(e // r) * w + e % r] = capacity[row0:row0 + rows].reshape(-1)
+        j = np.arange(rows) * w + r
+        stage[j] = score_cap[row0:row0 + rows, 0]
+        stage[j + 1] = score_cap[row0:row0 + rows, 1]
+        stage[j + 2] = counts[row0:row0 + rows].astype(np.float32)
+        stage[j + 3] = noise[row0:row0 + rows]
+        stage[j + 4] = banned[row0:row0 + rows].astype(np.float32)
+        assert not np.isnan(stage).any()
+        base = row0 * w
+        assert base % 4 == 0
+        n_vec = rows * w // 4
+        for lo, hi in ((0, 4 * n_vec), (4 * n_vec, rows * w)):
+            out[base + lo:base + hi] = stage[lo:hi]
+            writes[base + lo:base + hi] += 1
+    assert (writes == 1).all()
+    return out.reshape(n, w)
+
+
+@pytest.mark.parametrize("n,r", [(1, 2), (255, 5), (257, 7), (1000, 5),
+                                 (513, 2)])
+def test_pack_model_matches_plain_and_reference(jax_mesh, n, r):
+    """K6's plain version against the reference's pack_fn and against the
+    model of K6's tile copy, at row counts no multiple of the tile."""
+    rng = np.random.default_rng(n + r)
+    cols = (rng.uniform(1e3, 4e3, (n, r)).astype(np.float32),
+            rng.uniform(8e2, 4e3, (n, 2)).astype(np.float32),
+            rng.integers(0, 9, n).astype(np.int32),
+            (rng.random(n) * 1e-3).astype(np.float32), rng.random(n) < 0.3)
+    ref = np.asarray(jk._mesh_keyed_program(jax_mesh, 64).pack_fn(*cols))
+    plain = tk.mesh_pack_plain(*map(_t, cols)).numpy()
+    np.testing.assert_array_equal(ref, plain)
+    np.testing.assert_array_equal(_k6_model(*cols), plain)
+    assert plain.shape == (n, r + 5)
+
+
+def _k8_model(table, usage, masks, masked0, n_shards, b):
+    """K8's index mapping (csrc/mesh.cu k8_score, k8_packet) in numpy, over
+    the masked scores [T, N] of its one score pass. Read as [T*S, n_loc],
+    segment g = t*S + s holds shard s's rows of key t; the select gives each
+    segment its feasible count (nf_sel, in segment order) and its top-B
+    local rows by (score desc, row asc). Packet row i = (s*T + t)*B + b is
+    segment g's b-th row (global row s*n_loc + that local row), vals
+    [S, T, B] in the same order, and nf_all[s, t] = nf_sel[t*S + s]."""
+    t_, n = masked0.shape
+    n_loc = n // n_shards
+    r = usage.shape[1]
+    seg = masked0.reshape(t_ * n_shards, n_loc)
+    nf_sel = (seg != -np.inf).sum(axis=1).astype(np.int32)
+    local = np.stack([np.lexsort((np.arange(n_loc), -row))[:b]
+                      for row in seg])
+    i = np.arange(n_shards * t_ * b)
+    st, bb = np.divmod(i, b)
+    s, t = np.divmod(st, t_)
+    g = t * n_shards + s
+    row = s * n_loc + local[g, bb]
+    pkt = np.concatenate([
+        row[:, None].astype(np.float32), table[row, :r],
+        table[row, r:r + 2], usage[row], table[row, r + 2:r + 3],
+        (table[row, r + 4:r + 5] > 0.5).astype(np.float32),
+        table[row, r + 3:r + 4], masks[:, row].T.astype(np.float32)], axis=1)
+    vals = masked0[t, row].reshape(n_shards, t_, b)
+    nf_all = np.empty((n_shards, t_), np.int32)
+    first = bb == 0
+    nf_all[s[first], t[first]] = nf_sel[g[first]]
+    return pkt, nf_all, vals
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+@pytest.mark.parametrize("b_kind", ["one", "shard"])
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+def test_all_shard_cold_stage_matches_per_shard_and_reference(
+        jax_mesh, s, b_kind, distinct):
+    """K8 over every shard in one call (the plain version the CPU runs)
+    equals the per-shard plain versions laid end to end and the model of
+    the kernel's index mapping, bit for bit, and the reference's a_cold
+    under shard_map on the packets and feasible counts, at T = 3 with B = 1
+    and B = a whole shard. The top-B values are the scores: on this fleet
+    JAX's and torch's exp2 leave them up to 5.7e-6 apart, above SCORE_TOL
+    (ROADMAP C5), so they are held bit for bit to the per-shard plain
+    versions, which test_cold_stage_matches_reference holds to the
+    reference."""
+    n_loc, t = 96, 3
+    n = s * n_loc
+    d = _fleet(n, t, 40 + s)
+    b = 1 if b_kind == "one" else n_loc
+    k = 1 if b == 1 else n_loc // 2
+    dt = {key: _t(v) for key, v in d.items()}
+    table = tk.mesh_pack_plain(dt["capacity"], dt["score_cap"],
+                               dt["job_counts"], dt["noise"], dt["banned0"])
+    args = (table, dt["usage"], dt["tg_masks"], dt["key_demands"],
+            float(PEN), distinct)
+    got = tk.cold_packets_plain(*args, s, b)
+    assert got[0].shape == (s * t * b, 6 + 10 + t)
+    assert got[1].shape == (s, t) and got[2].shape == (s, t, b)
+    per = [tk.cold_packet_plain(
+        table[q * n_loc:(q + 1) * n_loc], dt["usage"][q * n_loc:(q + 1)
+                                                      * n_loc],
+        dt["tg_masks"][:, q * n_loc:(q + 1) * n_loc], dt["key_demands"],
+        float(PEN), distinct, q * n_loc, b) for q in range(s)]
+    want = (torch.cat([x[0] for x in per]), torch.stack([x[1] for x in per]),
+            torch.stack([x[2] for x in per]))
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    # On CPU tensors the wrapper runs the plain version, counted once.
+    before = native.PLAIN_CALLS["cold_packet"]
+    wrapped = tk.cold_packets(*args, s, b)
+    assert native.PLAIN_CALLS["cold_packet"] == before + 1
+    for a, w in zip(wrapped, want):
+        assert torch.equal(a, w)
+    masked0 = tk.score_topk_plain(
+        dt["capacity"], dt["score_cap"], dt["usage"], dt["tg_masks"],
+        dt["job_counts"], dt["key_demands"], dt["noise"], float(PEN),
+        distinct, dt["banned0"], 1)[0].numpy()
+    model = _k8_model(table.numpy(), d["usage"], d["tg_masks"], masked0, s,
+                      b)
+    for a, w in zip(model, got):
+        np.testing.assert_array_equal(a, w.numpy())
+    # The reference (its B is 2k; B = 1 is the first of each segment).
+    j = _Jax(jparallel.scheduling_mesh(jax.devices()[:s]), k, d)
+    pkt_r, _, nf_r, vals_r = j.cold(distinct,
+                                    jk._ring_zero(j.prog.ring_cap, 5))
+    b_r = np.asarray(vals_r).shape[2]
+    assert b_r == (2 if b == 1 else n_loc)
+    first = np.arange(s * t * b_r) % b_r < b
+    np.testing.assert_array_equal(np.asarray(pkt_r)[first], got[0].numpy())
+    np.testing.assert_array_equal(np.asarray(nf_r), got[1].numpy())
+    np.testing.assert_array_equal(np.isfinite(np.asarray(vals_r)[:, :, :b]),
+                                  np.isfinite(got[2].numpy()))
+    # The mesh program's cold stage is that one call.
+    if b == n_loc:
+        prog = tk._mesh_keyed_program(_tmesh(s), k)
+        before = native.PLAIN_CALLS["cold_packet"]
+        cand, tail, nf_all, vals_all = prog.a_cold(
+            table, dt["usage"], dt["tg_masks"], dt["key_demands"],
+            float(PEN), distinct, prog.ring_zero(5))
+        assert native.PLAIN_CALLS["cold_packet"] == before + 1
+        for a, w in zip((cand, nf_all, vals_all), want):
+            assert torch.equal(a, w)
+
+
 # ------------------------------- tests/test_mesh_keyed_equivalence.py cases
 
 
@@ -893,11 +1052,11 @@ def test_collective_audit_exchange_bytes_match_reference(jax_mesh):
     assert ref["exchange_bytes"] == got["exchange_bytes"] == 172_096
     for stage in ("cold", "pool_build", "warm", "apply"):
         assert ref[stage] == got[stage] == 0
-    # One K7 call per stage covers every shard (they share one device);
-    # K8 runs once per shard.
+    # One K7 call and one K8 call per stage cover every shard (they share
+    # one device).
     launches = got["launches"]
     assert launches["cold"] == {"mesh_pack": 1, "apply_ring": 1,
-                                "cold_packet": 4}
+                                "cold_packet": 1}
     assert launches["pool_build"] == {"pool_build": 1}
     assert launches["warm"] == {"score_topk": 1, "merge_candidates": 1,
                                 "placement_chain": 1, "warm_finish": 1}
@@ -1287,4 +1446,75 @@ def test_warm_finish_matches_plain_and_model_on_card(cuda_device, case):
     args = args[:14] + (odd,) + args[15:]
     assert all(_bits(a, b) for a, b in zip(tk.warm_finish(*args),
                                            tk.warm_finish_plain(*args)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 5, 7])
+@pytest.mark.parametrize("n", [1, 255, 257, 1 << 20])
+def test_pack_matches_plain_on_card(cuda_device, n, r):
+    """K6's tile copy at row counts around its 256-row tile, the 1M-row
+    table, and 2, 5 and 7 resource dimensions; then with a score_cap at an
+    odd float offset, which K6 reads as two floats instead of a float2."""
+    rng = np.random.default_rng(n + r)
+    args = tuple(torch.tensor(a, device=cuda_device) for a in (
+        rng.uniform(1e3, 4e3, (n, r)).astype(np.float32),
+        rng.uniform(8e2, 4e3, (n, 2)).astype(np.float32),
+        rng.integers(0, 9, n).astype(np.int32),
+        (rng.random(n) * 1e-3).astype(np.float32), rng.random(n) < 0.3))
+    before = native.LAUNCHES["mesh_pack"]
+    assert _bits(tk.mesh_pack(*args), tk.mesh_pack_plain(*args))
+    assert native.LAUNCHES["mesh_pack"] == before + 1
+    odd = torch.empty(2 * n + 1, device=cuda_device)[1:].view(n, 2)
+    odd.copy_(args[1])
+    args = (args[0], odd) + args[2:]
+    assert _bits(tk.mesh_pack(*args), tk.mesh_pack_plain(*args))
+    torch.cuda.synchronize()
+
+
+# (rows a shard, keys, B, distinct): the 1M-row window's shard, mesh-served's
+# (B = 2,048 = a whole shard), the certificate-miss shape (256 rows a shard,
+# B = 128), and B = 1 with three keys.
+COLD_CARD_CASES = [(1 << 17, 1, 2048, False), (2048, 1, 2048, False),
+                   (256, 4, 128, True), (512, 3, 1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_loc,t,b,distinct", COLD_CARD_CASES)
+def test_all_shard_cold_packet_matches_plain_on_card(cuda_device, n_loc, t,
+                                                     b, distinct):
+    """K8 over all 8 shards in one call against the per-shard plain
+    versions laid end to end (twice through one select scratch), its S = 1
+    form against the per-shard plain version on every shard, and the mesh
+    program's cold stage making that one launch."""
+    n = SHARDS * n_loc
+    d = {k: torch.tensor(v, device=cuda_device)
+         for k, v in _fleet(n, t, n_loc + t).items()}
+    table = tk.mesh_pack(d["capacity"], d["score_cap"], d["job_counts"],
+                         d["noise"], d["banned0"])
+    args = (table, d["usage"], d["tg_masks"], d["key_demands"], 10.0,
+            distinct)
+    want = tk.cold_packets_plain(*args, SHARDS, b)
+    work = tk.cold_select_work(cuda_device, SHARDS, t)
+    for _ in range(2):
+        before = native.LAUNCHES["cold_packet"]
+        got = tk.cold_packets(*args, SHARDS, b, work=work)
+        assert native.LAUNCHES["cold_packet"] == before + 1
+        assert all(_bits(a, w) for a, w in zip(got, want))
+    for q in range(SHARDS):
+        rows = slice(q * n_loc, (q + 1) * n_loc)
+        one = (table[rows], d["usage"][rows], d["tg_masks"][:, rows],
+               d["key_demands"], 10.0, distinct, q * n_loc, b)
+        assert all(_bits(a, w) for a, w in zip(tk.cold_packet(*one),
+                                               tk.cold_packet_plain(*one)))
+    if b > 1:
+        # The program's k whose B = min(2k, n_loc) is this b.
+        k = b // 2 if b < n_loc else n_loc
+        prog = tk._mesh_keyed_program(
+            scheduling_mesh([cuda_device] * SHARDS), k)
+        before = native.LAUNCHES["cold_packet"]
+        cand, _, nf_all, vals_all = prog.a_cold(*args, prog.ring_zero(5))
+        assert native.LAUNCHES["cold_packet"] == before + 1
+        assert all(_bits(a, w) for a, w in zip((cand, nf_all, vals_all),
+                                               want))
     torch.cuda.synchronize()
