@@ -20,6 +20,13 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            dimensions, 40 keys) and the select's at K2's and K8's shapes
            (exact ties, k = 1, k = n, several keys, a starved key), each bit
            for bit against the plain version; torch.topk as K2's yardstick.
+           K4b at every refresh chunk size from a block on the card and
+           from a pinned host block it reads in place (the main path), with
+           a row past the table and repeated padding rows; K5 at three
+           window shapes into a block on the card and into one pinned host
+           block it writes in place (the main path); each bit for bit
+           against its plain version. An empty kernel's time, the floor of
+           a launch.
   storm    the slice at full width, through the entry points a user calls:
            a 10,000-node fleet in 64 computed classes (BASELINE config 3,
            16,384 table rows), 100 service evals of 50 placements, one batch
@@ -49,7 +56,15 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            launches per kernel; the median rate) and a traced storm of the
            same shape (device busy share, device time by kernel), plus the
            worker's per-window node cache time (`t_nodecache_ms`) and the
-           device time of the window's table snapshot. Every eval must
+           device time of the window's table snapshot; the host ms per
+           window of the snapshot's refresh (`t_refresh_ms`) and of the
+           drain plan (`t_drain_stack_ms`), and the traced storm's copies
+           (host->device, device->host) and CUDA runtime calls that
+           synchronize or copy. Then a probe of the dirty-row refresh on
+           the served table (50 usage rows): its host ms on an idle stream
+           and right behind a kernel of about 1 ms, and its copies and
+           syncs traced. Every
+           eval must
            complete through a fused window (no slow or fallback eval), no
            node may be over capacity, the device usage must equal the host
            mirror after quiesce and no plain version may run.
@@ -102,13 +117,16 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            on a one-device server (the same jobs and tie-break noise): the
            same (job, alloc name -> node) set and the same usage; every
            window on the mesh, at least one warm, no fallback, and K6-K10
-           launched. Untraced evals/s, then a traced storm's idle share.
+           launched. Untraced evals/s, then a traced storm's idle share,
+           copies and runtime calls.
 
 Last, every kernel's device-only time a call (torch.profiler's CUDA
 activity) beside its event time and its host time a call, at the shapes
-the phases gave it, and the library yardsticks (torch.sort(stable=True) of
-K3's rows, torch.cat for K6, torch.topk for K8, torch.sort for K9): taken after
-every event time, because a profiler session slows later launches.
+the phases gave it, and the library yardsticks (torch.topk for K2,
+torch.sort(stable=True) of K3's rows, index_copy_ on the three tables for
+K4b, torch.cat for K6, torch.topk for K8, torch.sort for K9) and the empty
+kernel: taken after every event time, because a profiler session slows
+later launches.
 
 --package-root DIR drives the nomad_tpu_torch package found in DIR (an
 unpacked earlier commit, say) with this script's phases, so two commits'
@@ -142,6 +160,7 @@ sys.path.insert(0, ROOT)
 SCORE_TOL = 4e-6        # absolute; see tests/test_torch_kernels.py
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+PCIE_BYTES_PER_S = 64e9     # H100 SXM host link, PCIe Gen5 x16, each way
 N_NODES = 10_000
 N_CLASSES = 64
 PER_EVAL = 50
@@ -281,8 +300,12 @@ def device_only_phase(torch):
     DEVICE_ONLY.clear()
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+def bound(nbytes: float, ops: float, host_bytes: float = 0):
+    """The least time for the work: bytes through device memory, bytes
+    that cross PCIe (`host_bytes`: a kernel reading or writing pinned host
+    memory in place) and operations, the largest of the three."""
+    t_bytes = max(nbytes / HBM_BYTES_PER_S, host_bytes / PCIE_BYTES_PER_S) \
+        * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -419,6 +442,7 @@ def compare_chain(torch, ref, got, valid, what):
 
 
 def run_kernel_phases(torch, dev, n=16384, deep=4096):
+    from nomad_tpu_torch import native
     from nomad_tpu_torch.scheduler import kernels as K
     from nomad_tpu_torch.tensor import node_table as NT
 
@@ -509,6 +533,9 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
             DEVICE_ONLY.extend([
                 (f"score_topk at the {label} (T={t}, N={n}, K={k_cand})",
                  ms["score_topk"][0], lambda: K.score_topk(*args), 50),
+                (f"torch.topk (k={kc}) of K2's masked scores at the {label}",
+                 topk_ms, lambda: torch.topk(m_k, kc, dim=1, sorted=True),
+                 50),
                 (f"placement_chain at the {label} (P={p})",
                  ms["placement_chain"][0],
                  lambda: K.placement_chain(*chain_args, **chain_kw), 5),
@@ -600,74 +627,204 @@ def run_kernel_phases(torch, dev, n=16384, deep=4096):
     chain_edge_cases(torch, dev, K, rng)
     select_edge_cases(torch, dev, K, rng)
 
+    # Since K4b and K5 work on pinned host memory in place (the package
+    # has native.device_address), each runs both ways on a card: K4b from
+    # a block on the card and from a pinned block (the main path), K5 into
+    # a block on the card and into a pinned block (the main path); and
+    # K4b's plain version drops rows past the table. An earlier package
+    # (--package-root) takes device blocks only.
+    pinned_api = hasattr(native, "device_address")
+    pinned = pinned_api and dev.type == "cuda"
+
     # K4b at every refresh chunk size; library: index_copy_ on each table.
+    # With pinned blocks, one row lies past the table (the kernel and the
+    # plain version drop it) and the last quarter repeats the first row,
+    # as a chunk's padding does.
     for size in NT._REFRESH_CHUNKS:
         tabs = [torch.tensor(rng.uniform(0, 1, shape).astype(np.float32),
                              device=dev)
                 for shape in ((n, 5), (n, 2), (n, 5))]
         rows = rng.permutation(n)[:size].astype(np.float32)
-        pk = torch.tensor(np.concatenate(
+        host_pk = np.concatenate(
             [rows[:, None],
              rng.uniform(0, 1, (len(rows), 12)).astype(np.float32)],
-            axis=1), device=dev)
+            axis=1)
+        if pinned_api:
+            host_pk[1, 0] = n + 3
+            host_pk[-size // 4:] = host_pk[0]
+        pk = torch.tensor(host_pk, device=dev)
         a = [x.clone() for x in tabs]
         b = [x.clone() for x in tabs]
         NT.scatter_refresh(*a, pk)
         NT.scatter_refresh_plain(*b, pk)
         check(all(torch.equal(x, y) for x, y in zip(a, b)),
               f"K4b chunk {size}: tables differ")
-        idx = pk[:, 0].long()
-        parts = (pk[:, 1:6].contiguous(), pk[:, 6:8].contiguous(),
-                 pk[:, 8:].contiguous())
+        in_table = pk[:, 0] < n
+        idx = pk[in_table, 0].long()
+        parts = (pk[in_table, 1:6].contiguous(),
+                 pk[in_table, 6:8].contiguous(), pk[in_table, 8:].contiguous())
 
         def library():
             for tab, part in zip(a, parts):
                 tab.index_copy_(0, idx, part)
 
-        k_ms = time_ms(torch, lambda: NT.scatter_refresh(*a, pk), 50)
+        d_ms = time_ms(torch, lambda: NT.scatter_refresh(*a, pk), 50)
         p_ms = time_ms(torch, lambda: NT.scatter_refresh_plain(*b, pk), 20)
         l_ms = time_ms(torch, library, 50)
-        print(f"phase K4b chunk={size}: identical to plain; kernel/plain/"
-              f"index_copy_ ms {k_ms:.4f}/{p_ms:.4f}/{l_ms:.4f}", flush=True)
+        k_ms, pin_note = d_ms, ""
+        if pinned:
+            pin = torch.empty(host_pk.shape, dtype=torch.float32,
+                              pin_memory=True)
+            pin.numpy()[:] = host_pk
+            c = [x.clone() for x in tabs]
+            NT.scatter_refresh(*c, pin)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(c, b)),
+                  f"K4b chunk {size} from a pinned block: tables differ")
+            k_ms = time_ms(torch, lambda: NT.scatter_refresh(*c, pin), 50)
+            pin_note = (f" (device address "
+                        f"{native.device_address(pin, dev):#x} of host "
+                        f"pointer {pin.data_ptr():#x})")
+        print(f"phase K4b chunk={size}: identical to plain"
+              + (", one row past the table, a quarter repeated padding rows"
+                 if pinned_api else "")
+              + (f", from a device block and from a pinned block{pin_note}"
+                 if pinned else "")
+              + f"; kernel ms from a device block {d_ms:.4f}"
+              + (f", from a pinned block {k_ms:.4f}" if pinned else "")
+              + f"; plain/index_copy_ ms {p_ms:.4f}/{l_ms:.4f}", flush=True)
         if size == 128:
             # The storm's refresh after one 50-placement commit dirties at
-            # most 50 rows: the 128-row bucket is its main-path shape.
-            bms, by = bound(nbytes(pk) + size * 12 * 4, 0)
+            # most 50 rows: the 128-row bucket is its main-path shape. From
+            # a pinned block the kernel reads the block over PCIe and
+            # writes 12 floats a row to device memory.
+            writes = size * 12 * 4
+            bms, by = (bound(writes, 0, host_bytes=nbytes(pk)) if pinned
+                       else bound(nbytes(pk) + writes, 0))
             table["scatter_refresh"] = dict(
                 max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                 bound_by=by, library_ms=l_ms)
-            DEVICE_ONLY.append((
-                f"scatter_refresh at {size} rows", k_ms,
-                lambda a=a, pk=pk: NT.scatter_refresh(*a, pk), 50))
+            DEVICE_ONLY.extend([
+                (f"scatter_refresh at {size} rows from a device block", d_ms,
+                 lambda a=a, pk=pk: NT.scatter_refresh(*a, pk), 50),
+                (f"index_copy_ x3 at {size} rows", l_ms, library, 50)])
+            if pinned:
+                DEVICE_ONLY.append((
+                    f"scatter_refresh at {size} rows from a pinned block",
+                    k_ms, lambda c=c, pin=pin: NT.scatter_refresh(*c, pin),
+                    50))
 
     # K5 at the served window's shapes: a 64-eval storm window of 64 padded
     # placements (the main path), a 16-eval window, and a 64-eval window of
     # 4,096-placement evals. All four outputs must be equal (scores bit for
-    # bit); no single PyTorch call computes the same function.
+    # bit), written on the card and (the main path) into a pinned host
+    # block; no single PyTorch call computes the same function.
     for e, p in ((64, 64), (16, 64), (64, 4096)):
         args = compact_inputs(torch, dev, rng, e, p)
         got = K.compact_window(*args)
         ref = K.compact_window_plain(*args)
-        for name, g, r in zip(("chosen", "scores", "nf_last", "ok"), got,
-                              ref):
-            if g.dtype == torch.float32:
-                g, r = g.view(torch.int32), r.view(torch.int32)
-            check(g.dtype == r.dtype and torch.equal(g, r),
-                  f"K5 E={e} P={p}: {name} differs")
-        k_ms = time_ms(torch, lambda: K.compact_window(*args), 200)
+        _identical(torch, got, ref, f"K5 E={e} P={p}")
+        d_ms = time_ms(torch, lambda: K.compact_window(*args), 200)
         p_ms = time_ms(torch, lambda: K.compact_window_plain(*args), 50)
-        bms, by = bound(nbytes(*args) + nbytes(*got), e * p * 2)
+        k_ms = d_ms
+        if pinned:
+            block = K.compact_block(e, p, dev)
+            check(block.is_pinned(), f"K5 E={e} P={p}: block not pinned")
+            into = K.compact_window(*args, out=block)
+            torch.cuda.synchronize()
+            _identical(torch, into, [r.cpu() for r in ref],
+                       f"K5 E={e} P={p} into a pinned block")
+            k_ms = time_ms(torch, lambda: K.compact_window(*args, out=block),
+                           200)
+            # It reads its inputs from device memory and writes its
+            # outputs over PCIe.
+            bms, by = bound(nbytes(*args), e * p * 2,
+                            host_bytes=nbytes(*got))
+        else:
+            bms, by = bound(nbytes(*args) + nbytes(*got), e * p * 2)
         print(f"phase K5 E={e} P={p}: chosen, scores (bits), nf_last and ok "
-              f"identical to plain; kernel/plain ms {k_ms:.4f}/{p_ms:.4f}; "
-              f"bound {bms:.6f} ms ({by})", flush=True)
-        if (e, p) == (64, 64):
+              f"identical to plain"
+              + (" on the card and into a pinned block" if pinned else "")
+              + f"; kernel ms into a device block {d_ms:.4f}"
+              + (f", into a pinned block {k_ms:.4f}" if pinned else "")
+              + f"; plain ms {p_ms:.4f}; bound {bms:.6f} ms ({by})",
+              flush=True)
+        if (e, p) == (64, 64) and dev.type == "cuda":
+            drain_probe(torch, K, args, pinned)
             table["compact_window"] = dict(
                 max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=bms,
                 bound_by=by, library_ms=None)
             DEVICE_ONLY.append((
-                f"compact_window at E={e} P={p}", k_ms,
+                f"compact_window at E={e} P={p} into a device block", d_ms,
                 lambda args=args: K.compact_window(*args), 200))
+            if pinned:
+                DEVICE_ONLY.append((
+                    f"compact_window at E={e} P={p} into a pinned block",
+                    k_ms, lambda args=args, block=block: K.compact_window(
+                        *args, out=block), 200))
+
+    if pinned:
+        # The launch floor: a kernel that does nothing, by events and (in
+        # device_only_phase) on the device.
+        lib, stream = native.library(), native.stream(dev)
+
+        def empty():
+            check(lib.nomad_empty(stream) == 0, "the empty kernel failed")
+
+        e_ms = time_ms(torch, empty, 1000)
+        print(f"phase launch floor: an empty kernel {e_ms:.4f} ms a launch "
+              f"by events over 1000 back-to-back launches", flush=True)
+        DEVICE_ONLY.append(("an empty kernel (the launch floor)", e_ms,
+                            empty, 1000))
     return table
+
+
+def drain_probe(torch, K, args, pinned: bool, reps: int = 200):
+    """Host ms to issue K5's part of one window's drain plan, as the
+    served worker issues it: the copy form (K5's outputs on the card, then
+    a pinned tensor and a non-blocking copy home for each of the four,
+    then one event; the worker's form before K5 wrote pinned memory) and,
+    with `pinned`, the zero-copy form (one pinned block, K5 writing it in
+    place, one event). Each plan is issued, timed, then waited for, as the
+    worker's drain waits on each window's event."""
+    dev = args[0].device
+
+    def copy_form():
+        outs = K.compact_window(*args)
+        homes = []
+        for t in outs:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            homes.append(h)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(dev))
+        return homes, ready
+
+    def pinned_form():
+        block = K.compact_block(*args[1].shape, dev)
+        outs = K.compact_window(*args, out=block)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(dev))
+        return outs, ready
+
+    forms = [("copies", copy_form)] + ([("pinned", pinned_form)]
+                                       if pinned else [])
+    out = {}
+    for name, form in forms:
+        form()[1].synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            _, ready = form()
+            times.append((time.perf_counter() - t0) * 1e3)
+            ready.synchronize()
+        out[name] = float(np.median(times))
+    e, p = args[1].shape
+    print(f"phase K5 drain plan at E={e} P={p}: host ms to issue K5's part "
+          f"of a window's drain plan, median of {reps}: "
+          + ", ".join(f"{k} form {v:.4f}" for k, v in out.items()),
+          flush=True)
+    return out
 
 
 def _identical(torch, got, ref, what):
@@ -1514,6 +1671,88 @@ def _storm_runner(srv):
     return run
 
 
+def trace_counts(prof) -> dict:
+    """From a torch.profiler session with CUDA activity: the host->device
+    and device->host copies on the card (memcpy activities), and the CUDA
+    runtime calls that synchronize a stream or an event or start a copy.
+    `runtime` counts every runtime call traced: 0 means the trace holds no
+    runtime calls, and the call counts are not measured."""
+    out = dict(memcpy_htod=0, memcpy_dtoh=0, cudaStreamSynchronize=0,
+               cudaEventSynchronize=0, cudaMemcpy=0, runtime=0)
+    for ev in prof.key_averages():
+        key, count = ev.key, ev.count
+        if key.startswith("Memcpy") and "HtoD" in key:
+            out["memcpy_htod"] += count
+        elif key.startswith("Memcpy") and "DtoH" in key:
+            out["memcpy_dtoh"] += count
+        if key.startswith("cuda"):
+            out["runtime"] += count
+            if key.startswith("cudaMemcpy"):
+                out["cudaMemcpy"] += count
+            elif key in out:
+                out[key] += count
+    return out
+
+
+def refresh_probe(torch, nt, gpu: str, rows_dirty: int = 50,
+                  reps: int = 100):
+    """The dirty-row refresh as a commit of one 50-placement eval leaves it
+    (50 usage rows: the 128-row bucket) on a served table: host ms a
+    refresh on an idle stream, host ms a refresh issued right behind a
+    long kernel (a refresh that waits for the stream takes the kernel's
+    time), and, under the profiler, the copies and syncs a refresh
+    issues. The deltas are zeros: the rows turn dirty, the table keeps its
+    values."""
+    from nomad_tpu_torch import native
+
+    live = np.array(sorted(nt.row_of.values()), dtype=np.int64)
+    rows = np.sort(np.random.default_rng(5).choice(live, rows_dirty,
+                                                   replace=False))
+    zero = np.zeros((rows_dirty, 5), dtype=np.float32)
+
+    def dirty():
+        check(nt.apply_row_usage_deltas(rows, zero, nt.row_epoch),
+              "refresh probe: the row epoch moved")
+
+    def timed_refresh(out):
+        dirty()
+        t0 = time.perf_counter()
+        nt.device_arrays()
+        out.append((time.perf_counter() - t0) * 1e3)
+
+    dirty()
+    nt.device_arrays()
+    torch.cuda.synchronize()
+    idle, behind = [], []
+    for _ in range(reps):
+        timed_refresh(idle)
+        torch.cuda.synchronize()
+    sleep_ms = time_ms(torch, lambda: torch.cuda._sleep(2_000_000), 5)
+    for _ in range(20):
+        torch.cuda._sleep(2_000_000)
+        timed_refresh(behind)
+        torch.cuda.synchronize()
+    native.reset_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            dirty()
+            nt.device_arrays()
+        torch.cuda.synchronize()
+    per = {k: v / reps for k, v in trace_counts(prof).items()}
+    launches = native.LAUNCHES["scatter_refresh"]
+    print(f"phase refresh probe on {gpu}: {rows_dirty} dirty usage rows a "
+          f"refresh: host ms a refresh on an idle stream median "
+          f"{np.median(idle):.4f} (p90 {np.percentile(idle, 90):.4f}); "
+          f"issued behind a {sleep_ms:.3f} ms kernel median "
+          f"{np.median(behind):.4f} (p90 {np.percentile(behind, 90):.4f}); "
+          f"a refresh traced: {json.dumps(per)} (K4b launches "
+          f"{launches / reps:g})", flush=True)
+    check(launches == reps, f"refresh probe: {launches} K4b launches for "
+          f"{reps} refreshes")
+    return per
+
+
 def served_phase(torch, gpu: str, device="cuda"):
     """The served storm: untraced and timed, then traced on the same shape.
     Returns the untraced storm's launches per kernel."""
@@ -1556,7 +1795,7 @@ def served_phase(torch, gpu: str, device="cuda"):
             check(placed == N_SERVED_EVALS * PER_EVAL,
                   f"served {label}: {placed} placements, want "
                   f"{N_SERVED_EVALS * PER_EVAL}")
-            device_ms = {}
+            device_ms, counts = {}, None
             if prof is not None:
                 for ev in prof.key_averages():
                     us = getattr(ev, "self_device_time_total", None)
@@ -1564,11 +1803,16 @@ def served_phase(torch, gpu: str, device="cuda"):
                         us = getattr(ev, "self_cuda_time_total", 0)
                     if us:
                         device_ms[ev.key] = us / 1e3
+                counts = trace_counts(prof)
             results[label] = dict(
                 wall=wall, lats=lats, placed=placed, stats=dict(worker.stats),
                 launches=dict(native.LAUNCHES),
-                plain_calls=dict(native.PLAIN_CALLS), device_ms=device_ms)
+                plain_calls=dict(native.PLAIN_CALLS), device_ms=device_ms,
+                counts=counts)
         _usage_checks(torch, srv, "served")
+        if device == "cuda":
+            refresh_probe(torch, srv.tindex.nt, gpu)
+            _usage_checks(torch, srv, "served after the refresh probe")
         # The window's table snapshot (three clones under the table lock).
         nt = srv.tindex.nt
         clone_ms = time_ms(torch, nt.device_snapshot, 200)
@@ -1583,6 +1827,9 @@ def served_phase(torch, gpu: str, device="cuda"):
         n = N_SERVED_EVALS
         timers = {k: round(v / n, 4) for k, v in st.items()
                   if k.startswith("t_") and v}
+        per_window = {k: round(st[k] / st["windows"], 4)
+                      for k in ("t_refresh_ms", "t_drain_stack_ms",
+                                "t_drain_fetch_ms")}
         print(f"phase served ({label} storm) on {gpu}: {n} evals, "
               f"{res['placed']} placements in {res['wall']:.3f} s: "
               f"{n / res['wall']:.1f} evals/s, "
@@ -1591,7 +1838,10 @@ def served_phase(torch, gpu: str, device="cuda"):
               f"{np.percentile(lat_ms, 99):.1f} ms; windows {st['windows']}, "
               f"multi {st['multi']}, fast {st['fast']}, slow {st['slow']}, "
               f"fallback {st['fallback']}, rebases {st['rebases']}; stage ms "
-              f"per eval {json.dumps(timers)}; launches {res['launches']}",
+              f"per eval {json.dumps(timers)}; host ms per window "
+              f"{json.dumps(per_window)}; launches {res['launches']}"
+              + (f"; traced copies and runtime calls a storm "
+                 f"{json.dumps(res['counts'])}" if res["counts"] else ""),
               flush=True)
     rates = sorted(N_SERVED_EVALS / results[label]["wall"]
                    for label, _ in runs)
@@ -2370,6 +2620,7 @@ def mesh_served_phase(torch, gpu: str, dev):
                     if us:
                         device_ms[ev.key] = us / 1e3
                 out["device_ms"] = device_ms
+                out["counts"] = trace_counts(prof)
                 out["traced_stats"] = dict(worker.stats)
         finally:
             srv.shutdown()
@@ -2403,6 +2654,9 @@ def mesh_served_phase(torch, gpu: str, dev):
               f"{st['mesh_warm']}, cert misses {st['mesh_cert_miss']}, "
               f"{st['mesh_bytes']} bytes exchanged, "
               f"t_mesh_exchange_ms {st['t_mesh_exchange_ms']:.3f}); "
+              f"host ms per window t_refresh_ms "
+              f"{st['t_refresh_ms'] / st['windows']:.4f}, t_drain_stack_ms "
+              f"{st['t_drain_stack_ms'] / st['windows']:.4f}; "
               f"launches {res['launches']}", flush=True)
     st = shd["stats"]
     check(st["mesh_windows"] == st["windows"] and st["mesh_warm"] > 0
@@ -2425,7 +2679,8 @@ def mesh_served_phase(torch, gpu: str, dev):
         print(f"phase mesh-served (traced storm) on {gpu}: {wall_ms:.1f} ms "
               f"wall, device busy {busy:.3f} ms, idle share "
               f"{1 - busy / wall_ms:.4f}; windows {ts['windows']}, mesh "
-              f"{ts['mesh_windows']} (warm {ts['mesh_warm']}); device ms by "
+              f"{ts['mesh_windows']} (warm {ts['mesh_warm']}); copies and "
+              f"runtime calls {json.dumps(shd['counts'])}; device ms by "
               f"entry: " + "; ".join(f"{k[:60]}={v:.3f}" for k, v in top),
               flush=True)
     else:

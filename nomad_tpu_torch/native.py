@@ -20,7 +20,17 @@ served worker launches K2-K5 from its dispatch thread while its build
 thread may launch K4b; one stream keeps the chain, the refresh, the
 table snapshots and the device->host copies in the order they were issued.
 
-Nothing here falls back: without `nvcc` or a card, `library()` raises.
+Pinned host memory: K4b reads its refresh block, and K5 writes its outputs,
+in pinned host memory through the address CUDA maps it at for the device
+(`device_address`), so neither needs a copy between host and device. CUDA
+does not know of such a kernel's reads or writes, and neither does
+PyTorch's caching host allocator, which records no event for them: the
+owner of a pinned buffer must keep it alive until an event recorded after
+the kernel has completed (the node table's staging ring, the served
+worker's drain plan).
+
+Nothing here falls back: without `nvcc` or a card, `library()` raises, and
+so does `device_address` for memory that is not pinned or not mapped.
 """
 
 from __future__ import annotations
@@ -40,7 +50,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("keyed.cu", "chain.cu", "refresh.cu", "compact.cu", "mesh.cu")
+SOURCES = ("keyed.cu", "chain.cu", "refresh.cu", "compact.cu", "mesh.cu",
+           "host.cu")
 HEADERS = ("score.cuh", "select.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
@@ -163,6 +174,8 @@ _SIGNATURES = {
     + [_P],
     "nomad_warm_finish": [_P] * 11 + [_I, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I] + [_P] * 5 + [_I, _P],
+    "nomad_host_device_ptr": [_P, ctypes.POINTER(ctypes.c_void_p)],
+    "nomad_empty": [_P],
 }
 # Entries that return a byte count (int64) rather than a cudaError_t.
 _SIZES = {
@@ -193,6 +206,32 @@ def library() -> ctypes.CDLL:
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def device_address(t: torch.Tensor, device: torch.device) -> int:
+    """The address at which a kernel on `device` reaches t's data: t's own
+    pointer for a tensor on that card, the mapped device address for a
+    pinned CPU tensor (CUDA's answer, never assumed to be the host
+    pointer; CUDA also says whether the memory is pinned). Anything else
+    raises: a pageable CPU tensor is never copied behind the caller's
+    back."""
+    if t.device.type == "cuda":
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, kernel on {device}")
+        return t.data_ptr()
+    if t.device.type != "cpu":
+        raise ValueError(f"a kernel on {device} reaches only tensors on the "
+                         f"card or in pinned host memory, not {t.device}")
+    base = t.untyped_storage().data_ptr()
+    dev = ctypes.c_void_p()
+    err = library().nomad_host_device_ptr(base, ctypes.byref(dev))
+    if err != 0 or not dev.value:
+        raise ValueError(f"a kernel on {device} reaches only tensors on the "
+                         f"card or in pinned host memory: CUDA maps no "
+                         f"device address for host memory at {base:#x} "
+                         f"(pageable, or pinned but not mapped; cudaError "
+                         f"{err})")
+    return dev.value + (t.data_ptr() - base)
 
 
 def stream(device: torch.device) -> int:

@@ -36,7 +36,7 @@ import functools
 import threading
 import time
 from collections import OrderedDict
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1390,26 +1390,82 @@ def compact_window_plain(packed3: torch.Tensor, valid: torch.Tensor,
     return chosen, scores, nf_last.to(torch.int32), ok
 
 
+@functools.lru_cache(maxsize=64)
+def _compact_parts(e: int, p: int):
+    """K5's output block: (byte offset, bytes, dtype, shape) of chosen
+    [E, P] int32, scores [E, P] f32, nf_last [E] int32 and ok [E] bool,
+    each part 16-byte aligned, and the block's size in bytes."""
+    parts, off = [], 0
+    for dtype, shape, size in ((torch.int32, (e, p), 4 * e * p),
+                               (torch.float32, (e, p), 4 * e * p),
+                               (torch.int32, (e,), 4 * e),
+                               (torch.bool, (e,), e)):
+        parts.append((off, size, dtype, shape))
+        off = (off + size + 15) // 16 * 16
+    return tuple(parts), off
+
+
+def compact_block(e: int, p: int, device: torch.device) -> torch.Tensor:
+    """A fresh output block for K5 at [E, P]: pinned host memory when the
+    window is on a card (K5 writes it in place; its owner keeps it alive
+    until an event recorded after the kernel has completed), plain host
+    memory on the CPU."""
+    return torch.empty(_compact_parts(e, p)[1], dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+
+
+def compact_block_views(block: torch.Tensor, e: int, p: int):
+    """(chosen, scores, nf_last, ok): the four parts of a K5 output block
+    as tensors over its bytes."""
+    parts, size = _compact_parts(e, p)
+    if block.dtype != torch.uint8 or block.dim() != 1 \
+            or not block.is_contiguous() or block.numel() < size:
+        raise ValueError(f"K5 output block: want {size} contiguous bytes, "
+                         f"got {block.dtype} {tuple(block.shape)}")
+    return tuple(block[off:off + size].view(dtype).view(shape)
+                 for off, size, dtype, shape in parts)
+
+
+def compact_block_fill(block: torch.Tensor, outs) -> tuple:
+    """Write K5's four outputs (from its plain version) into `block` and
+    return the block's views; copies from a card are non-blocking, so the
+    views are ready after an event recorded behind them."""
+    views = compact_block_views(block, *outs[0].shape)
+    for dst, src in zip(views, outs):
+        dst.copy_(src, non_blocking=True)
+    return views
+
+
 def compact_window(packed3: torch.Tensor, valid: torch.Tensor,
-                   last_idx: torch.Tensor):
-    """K5 (csrc/compact.cu). See compact_window_plain for the contract."""
+                   last_idx: torch.Tensor,
+                   out: Optional[torch.Tensor] = None):
+    """K5 (csrc/compact.cu). See compact_window_plain for the contract.
+    The outputs are the four parts of one block (`compact_block_views`):
+    `out` when given, a fresh block on the inputs' device otherwise. On a
+    card `out` may lie there or in pinned host memory, which the kernel
+    writes in place (its owner keeps it alive until an event recorded
+    after this call has completed); a pageable host block raises. CPU
+    inputs run the plain version, copied into `out` when given."""
     if not _on_cuda(packed3, valid, last_idx):
-        return compact_window_plain(packed3, valid, last_idx)
+        outs = compact_window_plain(packed3, valid, last_idx)
+        return outs if out is None else compact_block_fill(out, outs)
     e, p = valid.shape
     _need(packed3, torch.float32, (e, p, 3), "packed3")
     _need(valid, torch.bool, (e, p), "valid")
     _need(last_idx, torch.int32, (e,), "last_idx")
     dev = packed3.device
-    chosen = torch.empty((e, p), dtype=torch.int32, device=dev)
-    scores = torch.empty((e, p), dtype=torch.float32, device=dev)
-    nf_last = torch.empty(e, dtype=torch.int32, device=dev)
-    ok = torch.empty(e, dtype=torch.bool, device=dev)
+    parts, size = _compact_parts(e, p)
+    if out is None:
+        out = torch.empty(size, dtype=torch.uint8, device=dev)
+    views = compact_block_views(out, e, p)
+    base = native.device_address(out, dev)
+    addr = [base + off for off, _, _, _ in parts]
     pt = native.ptr
     err = native.library().nomad_compact_window(
-        pt(packed3), pt(_u8(valid)), pt(last_idx), e, p, pt(chosen),
-        pt(scores), pt(nf_last), pt(_u8(ok)), native.stream(dev))
+        pt(packed3), pt(_u8(valid)), pt(last_idx), e, p, *addr,
+        native.stream(dev))
     native.check("compact_window", err)
-    return chosen, scores, nf_last, ok
+    return views
 
 
 # ------------------------------------------------------- host mirrors

@@ -3,17 +3,22 @@
 Ported from nomad_tpu/server/pipelined_worker.py. What changed for a CUDA
 card: the window's tables are a snapshot of the node table's device tensors
 (`NodeTensor.device_snapshot`, since a refresh rewrites the live ones in
-place); `_plan_drain` stacks the per-eval results with `torch.stack`,
-compacts each group with kernel K5 (`kernels.compact_window`) and starts
-non-blocking copies into pinned host tensors followed by ONE CUDA event,
-which `_drain_window` waits on once per window; results on the CPU (the
-tests' `device="cpu"`) take K5's plain version and numpy results
-`compact_host`, routed by where they lie. Host placement is off unless the
-caller asks for it. On a scheduling mesh (logical shards of one card) the
-windows run the shard-local keyed pipeline and chain a `kernels.MeshChain`;
-each warm window's exactness flag rides the same pinned copies before the
-one event, and a failed certificate nacks the window. Everything else is
-the reference's.
+place); `_plan_drain` stacks the per-eval results with `torch.stack` and
+compacts each group with kernel K5 (`kernels.compact_window`), which writes
+its four outputs straight into one pinned host block per call, so no
+device->host copy follows it; ONE CUDA event recorded after the last K5
+is what `_drain_window` waits on once per window. The blocks live in the
+window's drain plan, and the plan is settled (its event synchronized) on
+every path before it is dropped, since PyTorch's host allocator would
+otherwise hand a block out again while K5 may still write it. Results on
+the CPU (the tests' `device="cpu"`) take K5's plain version into a plain
+host block, and numpy results `compact_host`, routed by where they lie.
+Host placement is off unless the caller asks for it. On a scheduling mesh
+(logical shards of one card) the windows run the shard-local keyed
+pipeline and chain a `kernels.MeshChain`; the warm windows' exactness
+flags are stacked and copied into pinned memory before the one event, and
+a failed certificate nacks the window. Everything else is the
+reference's.
 
 The base Worker processes one evaluation at a time: dispatch the placement
 kernel, BLOCK on the device->host readback, submit the plan, wait, ack.
@@ -215,17 +220,25 @@ class _MultiSlice:
 @dataclass
 class _DrainPlan:
     """Dispatch-time plan of a window's device->host drain: the compaction
-    kernels are launched (async) and their outputs' copies into pinned host
-    tensors started while the window is still in the dispatch stage, so the
-    bytes move under the PREVIOUS window's build instead of serializing
-    behind the drain stage's wait."""
+    kernels are launched (async) while the window is still in the dispatch
+    stage and write their outputs into pinned host blocks, so the bytes
+    move under the PREVIOUS window's build instead of serializing behind
+    the drain stage's wait."""
 
     fetches: dict                  # key -> host (chosen, scores, nf_last, ok)
     layout: list                   # per-rec ("host", CompactResult) |
     #                                ("dev", key, row-in-fetched-arrays)
-    # Recorded on the kernels' stream after the window's copies: the drain
-    # waits on it once. None when nothing was copied from a card.
+    # Recorded on the kernels' stream after the window's last K5 and copy:
+    # the drain waits on it once. None when nothing ran on a card.
     ready: Optional[torch.cuda.Event] = None
+
+    def settle(self) -> None:
+        """Wait until every kernel and copy writing into the plan's pinned
+        blocks has completed. The blocks may be dropped only after this:
+        K5 writes them through a raw address, so PyTorch's host allocator
+        knows of no pending use and would reuse a block at once."""
+        if self.ready is not None:
+            self.ready.synchronize()
 
 
 @dataclass
@@ -423,6 +436,13 @@ class PipelinedWorker(Worker):
                 if not (self._stop.is_set()
                         or not self.eval_broker.enabled()):
                     logger.exception("pipelined worker: window drain failed")
+            finally:
+                # A drain that raised before its wait (the
+                # worker.window.drain failpoint) must still keep the
+                # window's pinned blocks until K5 is done with them: the
+                # build stage drops the work.
+                if work.drain is not None:
+                    work.drain.settle()
             self._build_q.put(work)
 
     def _build_loop(self) -> None:
@@ -471,7 +491,7 @@ class PipelinedWorker(Worker):
                 if work.published and self._arbiter.finish_window():
                     # Pipeline drained across ALL workers: the NEXT window
                     # will rebase onto committed usage and pay the
-                    # dirty-row refresh (one host->device copy and K4b
+                    # dirty-row refresh (K4b from the pinned staging ring
                     # after a storm). This thread is idle until then —
                     # prefetch the refresh now so dispatch finds clean
                     # device state. Serialized with dispatch by the tensor
@@ -635,10 +655,10 @@ class PipelinedWorker(Worker):
         slow: List[Tuple[Evaluation, str]] = []
         # Shared per-window: every eval sees the same snapshot, so the ready
         # node list, candidate mask, class-eligibility cache, AND the node
-        # table's device arrays (whose dirty-row refresh is a blocking
-        # host->device transfer) are built once per window, not once per
-        # eval. The tie-break noise is refreshed every 64 windows — enough
-        # to spread load across ties without paying an upload per window.
+        # table's device arrays (a snapshot: clones under the table lock)
+        # are built once per window, not once per eval. The tie-break
+        # noise is refreshed every 64 windows — enough to spread load
+        # across ties without paying an upload per window.
         node_cache: Dict[tuple, tuple] = {}
         if self._noise is None or self._noise.shape[0] != nt.n_rows \
                 or self.stats["windows"] % 64 == 0:
@@ -1138,15 +1158,16 @@ class PipelinedWorker(Worker):
                     mesh_flags: Optional[list] = None) -> _DrainPlan:
         """Dispatch-time drain assembly: reduce every device-side result to
         the minimal host arrays (kernel K5, kernels.compact_window — int32
-        chosen rows, winner scores, per-eval nf_last + success mask) and
-        START the device->host copies, all async. The drain stage then only
-        waits on copies already in flight. Host-placed (numpy) results
-        compact inline with compact_host. Singleton device results are
-        stacked first (a copy outside the kernel, as the reference's
-        jnp.stack is outside its jitted program). The route follows where a
-        result lies: a CUDA tensor launches K5, a CPU tensor runs its plain
-        version. The window's warm mesh flags are stacked into one tensor
-        that rides the same copies, before the one event."""
+        chosen rows, winner scores, per-eval nf_last + success mask), which
+        K5 writes straight into one pinned host block per call, all async.
+        The drain stage then only waits on the window's one event.
+        Host-placed (numpy) results compact inline with compact_host.
+        Singleton device results are stacked first (a copy outside the
+        kernel, as the reference's jnp.stack is outside its jitted
+        program). The route follows where a result lies: a CUDA tensor
+        launches K5, a CPU tensor runs its plain version into a plain host
+        block. The window's warm mesh flags are stacked into one tensor and
+        copied home before the one event."""
         t0 = time.perf_counter()
         layout: list = [None] * len(fast)
         fetches: dict = {}
@@ -1170,50 +1191,64 @@ class PipelinedWorker(Worker):
         device = self.tindex.nt.device
         if mesh_flags:
             fetches[_MESH_FLAGS] = (torch.stack(mesh_flags),)
-        compact = (kernels.compact_window_plain if native.plain_on_card
-                   else kernels.compact_window)
-        for pid, (parent, slices, prep) in multi.items():
-            p = prep.p_pad
-            e_pad = parent.packed.shape[0] // p
-            valid = np.zeros((e_pad, p), dtype=bool)
-            for _, sl_idx in slices:
-                valid[sl_idx] = prep.valid
-            last = np.full(e_pad, prep.n_valid - 1, dtype=np.int32)
-            key = ("multi", pid)
-            # valid/last are byte-identical across a storm's windows: the
-            # content-addressed cache uploads them once. The fused parent's
-            # packed [e_pad * p, 3] is viewed as [e_pad, p, 3], no copy.
-            fetches[key] = compact(
-                parent.packed.view(e_pad, p, 3),
-                device_input(valid, device), device_input(last, device))
-            for i, sl_idx in slices:
-                layout[i] = ("dev", key, sl_idx)
-        for p_pad, group in singles.items():
-            # The reference padded the stack's arity to the window size so
-            # XLA compiled one program per shape; K5 takes any eval count,
-            # so the stack holds exactly the group's results (per-eval
-            # outputs are the same either way).
-            packed3 = torch.stack([rec.res.packed for _, rec in group])
-            valid = np.zeros((len(group), p_pad), dtype=bool)
-            last = np.zeros(len(group), dtype=np.int32)
-            for k, (_, rec) in enumerate(group):
-                valid[k] = rec.prep.valid
-                last[k] = rec.prep.n_valid - 1
-            key = ("stack", p_pad)
-            fetches[key] = compact(packed3, device_input(valid, device),
-                                   device_input(last, device))
-            for k, (i, _) in enumerate(group):
-                layout[i] = ("dev", key, k)
-        fetches, ready = _copy_home(fetches, device)
+
+        def compact(packed3, valid, last):
+            block = kernels.compact_block(*valid.shape, device)
+            if native.plain_on_card:
+                return kernels.compact_block_fill(
+                    block, kernels.compact_window_plain(packed3, valid, last))
+            return kernels.compact_window(packed3, valid, last, out=block)
+
+        try:
+            for pid, (parent, slices, prep) in multi.items():
+                p = prep.p_pad
+                e_pad = parent.packed.shape[0] // p
+                valid = np.zeros((e_pad, p), dtype=bool)
+                for _, sl_idx in slices:
+                    valid[sl_idx] = prep.valid
+                last = np.full(e_pad, prep.n_valid - 1, dtype=np.int32)
+                key = ("multi", pid)
+                # valid/last are byte-identical across a storm's windows:
+                # the content-addressed cache uploads them once. The fused
+                # parent's packed [e_pad * p, 3] is viewed as
+                # [e_pad, p, 3], no copy.
+                fetches[key] = compact(
+                    parent.packed.view(e_pad, p, 3),
+                    device_input(valid, device), device_input(last, device))
+                for i, sl_idx in slices:
+                    layout[i] = ("dev", key, sl_idx)
+            for p_pad, group in singles.items():
+                # The reference padded the stack's arity to the window size
+                # so XLA compiled one program per shape; K5 takes any eval
+                # count, so the stack holds exactly the group's results
+                # (per-eval outputs are the same either way).
+                packed3 = torch.stack([rec.res.packed for _, rec in group])
+                valid = np.zeros((len(group), p_pad), dtype=bool)
+                last = np.zeros(len(group), dtype=np.int32)
+                for k, (_, rec) in enumerate(group):
+                    valid[k] = rec.prep.valid
+                    last[k] = rec.prep.n_valid - 1
+                key = ("stack", p_pad)
+                fetches[key] = compact(packed3, device_input(valid, device),
+                                       device_input(last, device))
+                for k, (i, _) in enumerate(group):
+                    layout[i] = ("dev", key, k)
+            ready = _copy_home(fetches, device)
+        except BaseException:
+            # A K5 already launched writes into its block, which this frame
+            # holds: the blocks may go only once the card is done with them.
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+            raise
         self.stats["t_drain_stack_ms"] += (time.perf_counter() - t0) * 1e3
         return _DrainPlan(fetches=fetches, layout=layout, ready=ready)
 
     def _drain_window(self, work: _WindowWork) -> list:
         """ONE wait for the whole window, however it mixes fused parents and
-        stacked per-eval results: the compaction outputs were launched (and
-        their copies into pinned host tensors started) at dispatch time, so
-        this waits on the window's one CUDA event instead of starting
-        copies. Returns one CompactResult per fast rec, in chain order."""
+        stacked per-eval results: the compaction kernels were launched into
+        pinned host blocks at dispatch time, so this waits on the window's
+        one CUDA event instead of starting copies. Returns one
+        CompactResult per fast rec, in chain order."""
         # Failure seam: a worker dying mid-window (process kill, a lost
         # device during the fetch) must nack the window for exactly-once
         # redelivery and taint the chain for a coherent rebase.
@@ -1224,8 +1259,7 @@ class PipelinedWorker(Worker):
         fetched = {}
         if plan.fetches:
             t0 = time.perf_counter()
-            if plan.ready is not None:
-                plan.ready.synchronize()
+            plan.settle()
             # numpy views of the host tensors (each view keeps its tensor
             # alive, so no pinned buffer is reused while a result reads it).
             fetched = {key: tuple(t.numpy() for t in outs)
@@ -1278,24 +1312,23 @@ _MESH_FLAGS = "mesh_flags"
 
 
 def _copy_home(fetches: dict, device: torch.device):
-    """Start the copies of a window's compaction outputs to the host.
-
-    On a card: one non-blocking copy per output into a fresh PINNED host
-    tensor (a non-blocking copy into pageable memory is synchronous, which
-    would turn the window's one host sync into one per output), all on the
-    stream the kernels ran on, then ONE event recorded after them. On the
-    CPU the outputs already are host tensors. Returns (host outputs by key,
-    the event or None)."""
+    """End a window's drain plan: copy what still lies on the card (the
+    mesh flags; K5's outputs are in pinned host blocks already) into
+    pinned host tensors with non-blocking copies (one into pageable memory
+    would be synchronous), rewriting `fetches` in place, then record ONE
+    event after them and the window's K5s, on the stream they ran on. On
+    the CPU everything is a host tensor already. Returns the event or
+    None."""
     if device.type != "cuda":
-        return fetches, None
-    host = {}
+        return None
     for key, outs in fetches.items():
-        copies = []
-        for t in outs:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            copies.append(h)
-        host[key] = tuple(copies)
+        if any(t.is_cuda for t in outs):
+            copies = []
+            for t in outs:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                copies.append(h)
+            fetches[key] = tuple(copies)
     ready = torch.cuda.Event()
     ready.record(torch.cuda.current_stream(device))
-    return host, ready
+    return ready

@@ -3,7 +3,12 @@
 Ported from nomad_tpu/tensor/node_table.py: the device arrays are torch
 tensors on the table's explicit `device` (`cuda` unless the caller passes
 `device="cpu"`; a CUDA table on a machine without CUDA raises), and the
-dirty-row refresh runs kernel K4b (`csrc/refresh.cu`).
+dirty-row refresh runs kernel K4b (`csrc/refresh.cu`). The host packs each
+refresh chunk straight into a slot of a ring of pinned staging buffers,
+which K4b reads in place over PCIe: a refresh issues no upload and no
+stream sync, so it never waits for the work already queued on the card.
+A slot is rewritten only after the event recorded behind its last kernel
+has completed (the reference likewise hands JAX a host array to place).
 
 Columns (float32, resource dims R=5): cpu MHz, memory MB, disk MB, iops,
 network mbits. Three persistent arrays:
@@ -49,6 +54,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -65,6 +71,11 @@ _MIN_CAP = 64
 # Dirty-row device refresh chunks (fixed shapes -> bounded compile count:
 # trickle, steady, storm, and rebase-after-storm buckets).
 _REFRESH_CHUNKS = (8, 128, 2048, 16384)
+# Packed refresh row: (row, capacity [R], score_cap [2], usage [R]).
+_REFRESH_WIDTH = 2 * RES_DIMS + 3
+# Staging slots of a table's refresh ring: a refresh waits for a slot's
+# previous kernel only when this many chunks are queued unread.
+_STAGING_SLOTS = 4
 
 
 def resources_vec(r: Optional[Resources]) -> np.ndarray:
@@ -158,6 +169,8 @@ class NodeTensor:
         self._static_snap: Optional[tuple] = None
         # The scheduling mesh the node axis shards over (set_mesh), or None.
         self.mesh = None
+        # Host staging of the refresh chunks, made at the first refresh.
+        self._ring: Optional[_StagingRing] = None
 
     # --------------------------------------------------------------- mesh
     def set_mesh(self, mesh) -> None:
@@ -405,19 +418,7 @@ class NodeTensor:
                         size = candidate
                         break
                 for i in range(0, len(rows), size):
-                    chunk = rows[i:i + size]
-                    if len(chunk) < size:
-                        chunk = np.concatenate(
-                            [chunk, np.full(size - len(chunk),
-                                            chunk[0], dtype=np.int32)])
-                    # ONE host->device copy per chunk: rows + all three
-                    # column groups ride a single packed array and split
-                    # device-side.
-                    packed = np.concatenate(
-                        [chunk[:, None].astype(np.float32),
-                         self.capacity[chunk], self.score_cap[chunk],
-                         self.usage[chunk]], axis=1)
-                    self._refresh(d, packed)
+                    self._refresh(d, rows[i:i + size], size)
                 # The scatter writes all three column groups, so refreshed
                 # rows are current in BOTH tiers regardless of why they were
                 # dirty.
@@ -442,11 +443,35 @@ class NodeTensor:
             out["usage"] = d["usage"].clone()
             return out
 
-    def _refresh(self, d: dict, packed: np.ndarray) -> None:
-        pk = torch.from_numpy(packed).to(self.device)
-        refresh = (scatter_refresh_plain if native.plain_on_card
-                   else scatter_refresh)
-        refresh(d["capacity"], d["score_cap"], d["usage"], pk)
+    def pack_chunk(self, out: np.ndarray, chunk: np.ndarray,
+                   size: int) -> None:
+        """Write one refresh chunk into out[:size]: per row (row, capacity,
+        score_cap, usage), rows and all three column groups in one block
+        that K4b splits on the card; the tail past the chunk repeats its
+        first row (sets are idempotent), so every chunk has a bucket's
+        shape. Call under the table lock."""
+        n, r = len(chunk), RES_DIMS
+        out[:n, 0] = chunk
+        out[:n, 1:1 + r] = self.capacity[chunk]
+        out[:n, 1 + r:3 + r] = self.score_cap[chunk]
+        out[:n, 3 + r:] = self.usage[chunk]
+        out[n:size] = out[0]
+
+    def _refresh(self, d: dict, chunk: np.ndarray, size: int) -> None:
+        """Pack `chunk` (at most `size` rows) into a free staging slot and
+        launch K4b on it in place. Under the table lock."""
+        if self._ring is None:
+            self._ring = _StagingRing(self.device)
+        ring = self._ring
+        slot = ring.take()
+        self.pack_chunk(ring.views[slot], chunk, size)
+        block = ring.bufs[slot][:size]
+        if native.plain_on_card:
+            scatter_refresh_plain(d["capacity"], d["score_cap"], d["usage"],
+                                  block.to(self.device, non_blocking=True))
+        else:
+            scatter_refresh(d["capacity"], d["score_cap"], d["usage"], block)
+        ring.done(slot)
 
     def warm_device(self) -> None:
         """Load the kernels (building them on first use) and run the refresh
@@ -458,12 +483,7 @@ class NodeTensor:
             self.device_arrays()
             d = self._device
             for size in _REFRESH_CHUNKS:
-                chunk = np.zeros(size, dtype=np.int32)
-                packed = np.concatenate(
-                    [chunk[:, None].astype(np.float32),
-                     self.capacity[chunk], self.score_cap[chunk],
-                     self.usage[chunk]], axis=1)
-                self._refresh(d, packed)
+                self._refresh(d, np.zeros(1, dtype=np.int32), size)
 
     # ------------------------------------------------------------- queries
     def node_id_array(self) -> np.ndarray:
@@ -807,15 +827,63 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class _StagingRing:
+    """The refresh chunks' host staging: _STAGING_SLOTS buffers of the
+    largest chunk, pinned for a CUDA table (K4b reads them in place) and
+    pageable for a CPU one, with an event per slot recorded after the
+    kernel that reads it. `take` hands out the next slot once its previous
+    kernel has completed; `done` records the slot's event. Used under the
+    table lock. A kernel may still read a slot when the ring is dropped, so
+    its finalizer waits on every event before the buffers go back to
+    PyTorch's host allocator (which records no event for a kernel's
+    reads)."""
+
+    def __init__(self, device: torch.device):
+        cuda = device.type == "cuda"
+        self.device = device
+        self.bufs = [torch.empty((_REFRESH_CHUNKS[-1], _REFRESH_WIDTH),
+                                 dtype=torch.float32, pin_memory=cuda)
+                     for _ in range(_STAGING_SLOTS)]
+        self.views = [b.numpy() for b in self.bufs]
+        self.events = ([torch.cuda.Event() for _ in self.bufs] if cuda
+                       else None)
+        self._next = 0
+        # The finalizer's arguments keep the buffers alive until it ran.
+        weakref.finalize(self, _StagingRing._settle, self.events,
+                         self.bufs).atexit = False
+
+    def take(self) -> int:
+        slot = self._next
+        self._next = (slot + 1) % len(self.bufs)
+        if self.events is not None:
+            self.events[slot].synchronize()
+        return slot
+
+    def done(self, slot: int) -> None:
+        """Record the slot's event behind the kernel just launched on it
+        (on the stream every kernel of the port uses)."""
+        if self.events is not None:
+            self.events[slot].record(torch.cuda.current_stream(self.device))
+
+    @staticmethod
+    def _settle(events, bufs) -> None:
+        for ev in events or ():
+            ev.synchronize()
+
+
 def scatter_refresh_plain(capacity: torch.Tensor, score_cap: torch.Tensor,
                           usage: torch.Tensor, packed: torch.Tensor) -> None:
     """K4b's plain version: split one packed refresh block
     [k, 1 + R + 2 + R] f32 = (row, capacity, score_cap, usage) and set those
-    rows of the three tables in place (reference: _scatter_refresh).
-    Repeated padding rows carry identical values, so duplicates are benign."""
+    rows of the three tables in place (reference: _scatter_refresh). Rows
+    outside [0, n) drop, as the reference's scatter drops rows past the
+    table. Repeated padding rows carry identical values, so duplicates are
+    benign."""
     native.PLAIN_CALLS["scatter_refresh"] += 1
     r = capacity.shape[1]
     rows = packed[:, 0].to(torch.int64)
+    keep = (rows >= 0) & (rows < capacity.shape[0])
+    packed, rows = packed[keep], rows[keep]
     capacity[rows] = packed[:, 1:1 + r]
     score_cap[rows] = packed[:, 1 + r:3 + r]
     usage[rows] = packed[:, 3 + r:]
@@ -824,12 +892,20 @@ def scatter_refresh_plain(capacity: torch.Tensor, score_cap: torch.Tensor,
 def scatter_refresh(capacity: torch.Tensor, score_cap: torch.Tensor,
                     usage: torch.Tensor, packed: torch.Tensor) -> None:
     """K4b (csrc/refresh.cu): one launch sets the capacity, score_cap and
-    usage rows of a packed refresh block in place. CPU tensors run the
-    plain version; CUDA tensors launch the kernel or raise."""
-    devices = {t.device for t in (capacity, score_cap, usage, packed)}
+    usage rows of a packed refresh block in place. CPU tables run the plain
+    version. CUDA tables launch the kernel, which reads the block on the
+    card or, in place, from pinned host memory (16-byte aligned); a
+    pageable host block raises, as does a failed launch. The caller keeps a
+    pinned block unchanged and alive until an event recorded after this
+    call has completed."""
+    device = capacity.device
+    devices = {t.device for t in (capacity, score_cap, usage)}
     if len(devices) != 1:
-        raise ValueError(f"scatter_refresh inputs span devices {devices}")
-    if capacity.device.type != "cuda":
+        raise ValueError(f"scatter_refresh tables span devices {devices}")
+    if device.type != "cuda":
+        if packed.device != device:
+            raise ValueError(f"scatter_refresh: block on {packed.device}, "
+                             f"tables on {device}")
         scatter_refresh_plain(capacity, score_cap, usage, packed)
         return
     n, r = capacity.shape
@@ -840,9 +916,13 @@ def scatter_refresh(capacity: torch.Tensor, score_cap: torch.Tensor,
                 or not t.is_contiguous()):
             raise ValueError(f"scatter_refresh: want contiguous f32 {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")
+    addr = native.device_address(packed, device)
+    if addr % 16:
+        raise ValueError("scatter_refresh: the packed block must be 16-byte "
+                         "aligned")
     err = native.library().nomad_scatter_refresh(
-        packed.data_ptr(), k, n, r, capacity.data_ptr(), score_cap.data_ptr(),
-        usage.data_ptr(), native.stream(capacity.device))
+        addr, k, n, r, capacity.data_ptr(), score_cap.data_ptr(),
+        usage.data_ptr(), native.stream(device))
     native.check("scatter_refresh", err)
 
 

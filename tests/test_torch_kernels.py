@@ -655,6 +655,52 @@ def test_compact_window_matches_compact_host_per_eval():
         assert cr.nf_last == int(nf[k]) and cr.ok == bool(ok[k])
 
 
+def _split_block(block, e, p):
+    """K5's output block split back into its four parts by byte offset:
+    chosen and scores [E, P] at 0 and the next 16-byte boundary, then
+    nf_last [E] and ok [E] each on its own 16-byte boundary."""
+    raw = block.numpy()
+
+    def align(x):
+        return (x + 15) // 16 * 16
+
+    o_scores = align(4 * e * p)
+    o_nf = align(o_scores + 4 * e * p)
+    o_ok = align(o_nf + 4 * e)
+    assert block.numel() == align(o_ok + e)
+    return (raw[:4 * e * p].view(np.int32).reshape(e, p),
+            raw[o_scores:o_scores + 4 * e * p].view(np.float32).reshape(e, p),
+            raw[o_nf:o_nf + 4 * e].view(np.int32),
+            raw[o_ok:o_ok + e].view(np.bool_))
+
+
+@pytest.mark.parametrize("e", [1, 16, 64])
+@pytest.mark.parametrize("p", [16, 64, 4096])
+def test_compact_block_matches_plain_and_jax(e, p):
+    """compact_window into one output block (what the served drain hands
+    K5): the block split back into its four parts equals the plain version
+    and the JAX compact_window, scores bit for bit, the rest exactly; the
+    returned tensors are views of the block."""
+    packed3, valid, last_idx = _compact_inputs(e, p, seed=7 * e + p)
+    block = tk.compact_block(e, p, torch.device("cpu"))
+    got = tk.compact_window(_t(packed3), _t(valid), _t(last_idx), out=block)
+    base = block.untyped_storage().data_ptr()
+    assert all(v.untyped_storage().data_ptr() == base for v in got)
+    plain = tk.compact_window_plain(_t(packed3), _t(valid), _t(last_idx))
+    ref = jk.compact_window(jnp.asarray(packed3), jnp.asarray(valid),
+                            jnp.asarray(last_idx))
+    parts = _split_block(block, e, p)
+    for part, view, pl, r in zip(parts, got, plain, ref):
+        r = np.asarray(r)
+        assert part.dtype == r.dtype and part.shape == r.shape
+        if part.dtype == np.float32:
+            part, r = part.view(np.uint32), r.view(np.uint32)
+            pl = pl.numpy().view(np.uint32)
+        np.testing.assert_array_equal(part, r)
+        np.testing.assert_array_equal(part, pl)
+        np.testing.assert_array_equal(view.numpy().view(part.dtype), part)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("e,p", [(64, 64), (16, 64), (64, 4096), (1, 8)])
 def test_compact_window_kernel_matches_plain_on_card(cuda_device, e, p):
@@ -704,3 +750,32 @@ def test_merge_trim_kernel_matches_plain_on_card(cuda_device):
     assert got[0].numel() == t * k
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.cpu().numpy(), r.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,p", [(64, 64), (16, 64), (64, 4096), (1, 8)])
+def test_compact_window_kernel_writes_a_pinned_block(cuda_device, e, p):
+    """K5 writes its outputs in place into one pinned host block, which is
+    ready after an event recorded behind it: bit for bit the plain
+    version. A pageable block raises."""
+    packed3, valid, last_idx = _compact_inputs(e, p, seed=3 * e + p)
+    args = (_t(packed3, cuda_device), _t(valid, cuda_device),
+            _t(last_idx, cuda_device))
+    block = tk.compact_block(e, p, cuda_device)
+    assert block.is_pinned()
+    before = native.LAUNCHES["compact_window"]
+    got = tk.compact_window(*args, out=block)
+    assert native.LAUNCHES["compact_window"] == before + 1
+    ready = torch.cuda.Event()
+    ready.record()
+    ready.synchronize()
+    ref = [r.cpu() for r in tk.compact_window_plain(*args)]
+    for g, r in zip(got, ref):
+        assert g.device.type == "cpu" and g.dtype == r.dtype
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32
+                           else g,
+                           r.view(torch.int32) if r.dtype == torch.float32
+                           else r)
+    with pytest.raises(ValueError, match="pageable"):
+        tk.compact_window(*args, out=torch.empty(block.numel(),
+                                                 dtype=torch.uint8))

@@ -6,6 +6,7 @@ must be identical. Port objects come from the reference's through
 nomad_tpu_torch.convert (plain data, no shared objects).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -271,3 +272,200 @@ def test_device_snapshot_is_not_rewritten_by_a_refresh():
     for k in snap:
         assert torch.equal(snap[k], before[k])
     assert not torch.equal(snap["usage"], live2["usage"])
+
+
+# ------------------------------------------ K4b's pinned staging ring
+
+def _seeded_table(n, seed, device="cpu"):
+    """A full table of n rows whose columns come from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    cap = rng.integers(1000, 9000, (n, 5)).astype(np.float32)
+    cols = dict(capacity=cap,
+                score_cap=(cap[:, :2] - rng.integers(0, 500, (n, 2))
+                           ).astype(np.float32),
+                usage=rng.integers(0, 900, (n, 5)).astype(np.float32),
+                ready=np.ones(n, bool), class_ids=np.zeros(n, np.int32),
+                dc_ids=np.zeros(n, np.int32),
+                node_of=[f"node-{i}" for i in range(n)], free=[],
+                class_names=["c"], dc_names=["dc1"], reserved={},
+                row_epoch=0, node_version=0)
+    return node_tensor_from_columns(cols, device=device), rng
+
+
+def _concatenated_block(nt, chunk, size):
+    """The refresh block as the table built it before the staging ring: a
+    chunk padded with its first row, then one np.concatenate of the four
+    column groups."""
+    if len(chunk) < size:
+        chunk = np.concatenate([chunk, np.full(size - len(chunk), chunk[0],
+                                               dtype=np.int32)])
+    return np.concatenate([chunk[:, None].astype(np.float32),
+                           nt.capacity[chunk], nt.score_cap[chunk],
+                           nt.usage[chunk]], axis=1)
+
+
+@pytest.mark.parametrize("n_dirty", [5, 8, 100, 2000, 16384, 20000])
+def test_staged_chunks_refresh_like_the_reference(n_dirty, monkeypatch):
+    """Every _REFRESH_CHUNKS bucket (padded and exact) and a dirty set of
+    two 16,384-row chunks: each chunk the host packs into its staging slot
+    is byte for byte today's np.concatenate block, padded tail included,
+    and the refreshed tables equal the reference's _scatter_refresh of
+    those blocks on the same fleet, exactly."""
+    from nomad_tpu.tensor.node_table import _scatter_refresh
+
+    n = 32768 if n_dirty > 16384 else 16384
+    nt, rng = _seeded_table(n, seed=n_dirty)
+    nt.device_arrays()                       # the full upload
+    ref = [jnp.asarray(getattr(nt, k).copy())   # no alias of the mirror
+           for k in ("capacity", "score_cap", "usage")]
+    rows = np.sort(rng.permutation(n)[:n_dirty]).astype(np.int64)
+    nt.capacity[rows] += 7.0                 # refreshed with the rows
+    nt.score_cap[rows] -= 3.0
+    assert nt.apply_row_usage_deltas(
+        rows, rng.integers(1, 50, (n_dirty, 5)).astype(np.float32),
+        nt.row_epoch)
+    staged = []
+    pack = nt.pack_chunk
+
+    def recording_pack(out, chunk, size):
+        pack(out, chunk, size)
+        staged.append((chunk.copy(), size, out[:size].copy()))
+
+    monkeypatch.setattr(nt, "pack_chunk", recording_pack)
+    got = nt.device_arrays()
+    assert len(staged) == -(-n_dirty // 16384)
+    assert sorted(np.concatenate([c for c, _, _ in staged]).tolist()) \
+        == rows.tolist()
+    for slot, (chunk, size, block) in enumerate(staged):
+        want = _concatenated_block(nt, chunk, size)
+        assert size == next(s for s in (8, 128, 2048, 16384)
+                            if min(n_dirty, 16384) <= s)
+        np.testing.assert_array_equal(block.view(np.uint32),
+                                      want.view(np.uint32))
+        np.testing.assert_array_equal(
+            nt._ring.views[slot][:size].view(np.uint32), want.view(np.uint32))
+        ref = list(_scatter_refresh(*ref, want))
+    for name, r in zip(("capacity", "score_cap", "usage"), ref):
+        np.testing.assert_array_equal(np.asarray(r), got[name].numpy(),
+                                      err_msg=name)
+        np.testing.assert_array_equal(getattr(nt, name), got[name].numpy(),
+                                      err_msg=name)
+
+
+def test_plain_refresh_drops_rows_past_the_table_as_the_reference_does():
+    """Rows at and past n drop in K4b's plain version as in the
+    reference's scatter; repeated padding rows are benign."""
+    from nomad_tpu.tensor.node_table import _scatter_refresh
+    from nomad_tpu_torch.tensor.node_table import scatter_refresh_plain
+
+    rng = np.random.default_rng(31)
+    n, k = 256, 128
+    tabs = [rng.random(s).astype(np.float32) for s in ((n, 5), (n, 2),
+                                                        (n, 5))]
+    rows = rng.permutation(n)[:k].astype(np.float32)
+    rows[:4] = [n, n + 1, n + 1000, 2 * n]   # past the table
+    rows[-8:] = rows[10]                     # padding repeats a row
+    vals = rng.random((k, 12)).astype(np.float32)
+    vals[-8:] = vals[10]
+    block = np.concatenate([rows[:, None], vals], 1)
+    want = _scatter_refresh(*[jnp.asarray(t) for t in tabs], block)
+    got = [torch.tensor(t) for t in tabs]
+    scatter_refresh_plain(*got, torch.tensor(block))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [8, 128, 2048, 16384])
+def test_refresh_kernel_reads_a_pinned_block(cuda_device, size):
+    """K4b reads its block in place from pinned host memory: bit for bit
+    its plain version, with rows past the table and repeated padding rows,
+    and no copy of the block."""
+    from nomad_tpu_torch.tensor.node_table import (
+        scatter_refresh, scatter_refresh_plain)
+
+    rng = np.random.default_rng(size)
+    n = 16384
+    tabs = [torch.tensor(rng.random(s).astype(np.float32),
+                         device=cuda_device)
+            for s in ((n, 5), (n, 2), (n, 5))]
+    rows = rng.permutation(n)[:size].astype(np.float32)
+    rows[1] = n + 3                          # past the table
+    rows[-size // 4:] = rows[0]              # padding repeats a row
+    vals = rng.random((size, 12)).astype(np.float32)
+    vals[-size // 4:] = vals[0]
+    block = torch.empty((size, 13), dtype=torch.float32, pin_memory=True)
+    block.numpy()[:] = np.concatenate([rows[:, None], vals], 1)
+    a = [t.clone() for t in tabs]
+    b = [t.clone() for t in tabs]
+    before = native.LAUNCHES["scatter_refresh"]
+    scatter_refresh(*a, block)
+    assert native.LAUNCHES["scatter_refresh"] == before + 1
+    scatter_refresh_plain(*b, block.to(cuda_device))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_a_pageable_block_raises(cuda_device):
+    """Nothing copies a pageable host block behind the caller's back."""
+    from nomad_tpu_torch.tensor.node_table import scatter_refresh
+
+    tabs = [torch.zeros(s, device=cuda_device)
+            for s in ((64, 5), (64, 2), (64, 5))]
+    with pytest.raises(ValueError, match="pageable"):
+        native.device_address(torch.zeros(8), cuda_device)
+    with pytest.raises(ValueError, match="pageable"):
+        scatter_refresh(*tabs, torch.zeros((8, 13)))
+    pinned = torch.zeros((8, 13), pin_memory=True)
+    assert native.device_address(pinned, cuda_device) != 0
+
+
+@pytest.mark.cuda
+def test_two_threads_refresh_through_the_ring_behind_a_long_kernel(
+        cuda_device):
+    """Two threads refresh one table through its staging ring while a long
+    kernel holds the stream, so every slot of the ring is queued unread
+    and later refreshes wait for their slot's event: the tables end equal
+    to a serial run of the same deltas on the CPU (integral deltas, so
+    the order of the adds cannot matter)."""
+    import threading
+
+    nt, _ = _seeded_table(4096, seed=5, device=cuda_device)
+    serial, _ = _seeded_table(4096, seed=5, device="cpu")
+    nt.device_arrays()
+    serial.device_arrays()
+    rng = np.random.default_rng(6)
+    work = [[(np.sort(rng.permutation(4096)[:int(rng.integers(1, 300))]),
+              None) for _ in range(12)] for _ in range(2)]
+    work = [[(rows, rng.integers(-5, 6, (len(rows), 5)).astype(np.float32))
+             for rows, _ in part] for part in work]
+    torch.cuda._sleep(200_000_000)           # ~0.1 s of the stream
+
+    def refresh(part):
+        for rows, vecs in part:
+            assert nt.apply_row_usage_deltas(rows, vecs, nt.row_epoch)
+            nt.device_arrays()
+
+    threads = [threading.Thread(target=refresh, args=(p,)) for p in work]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    for part in work:
+        for rows, vecs in part:
+            assert serial.apply_row_usage_deltas(rows, vecs,
+                                                 serial.row_epoch)
+    want = serial.device_arrays()
+    got = nt.device_arrays()
+    torch.cuda.synchronize()
+    for name in ("capacity", "score_cap", "usage"):
+        assert torch.equal(got[name].cpu(), want[name]), name

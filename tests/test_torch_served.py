@@ -282,6 +282,59 @@ def test_live_server_completes_a_storm_on_the_cpu():
         srv.shutdown()
 
 
+def test_failed_drain_settles_its_plan_before_the_window_is_nacked(
+        monkeypatch):
+    """The `worker.window.drain` failpoint fails a window's drain before
+    its wait. The window's drain plan must still be settled (its event
+    synchronized: on a card K5 may still be writing the plan's pinned
+    blocks, which PyTorch's host allocator would hand out again once
+    dropped) before the build stage nacks the window and drops it; the
+    nacked evals are redelivered and complete. On the CPU the plan has no
+    event, so a stand-in records the waits."""
+    from nomad_tpu_torch.server import pipelined_worker as pw
+
+    class Ready:
+        synced = 0
+
+        def synchronize(self):
+            self.synced += 1
+
+    monkeypatch.setattr(pw, "_copy_home", lambda fetches, device: Ready())
+    failed, at_nack = [], []
+    drain, send_nack = TWorker._drain_window, TWorker._send_nack
+
+    def recording_drain(self, work):
+        try:
+            return drain(self, work)
+        except tfailpoints.FailpointError:
+            failed.append(work.drain)
+            raise
+
+    def recording_nack(self, eval_id, token):
+        at_nack.append([plan.ready.synced for plan in failed])
+        return send_nack(self, eval_id, token)
+
+    monkeypatch.setattr(TWorker, "_drain_window", recording_drain)
+    monkeypatch.setattr(TWorker, "_send_nack", recording_nack)
+    srv = TServer(TServerConfig(device="cpu", num_schedulers=1,
+                                scheduler_window=16, **PARKED_TTL))
+    srv.establish_leadership()
+    tfailpoints.arm("worker.window.drain", "drop", count=1)
+    try:
+        for node in [tmock.node() for _ in range(20)]:
+            srv.node_register(node)
+        eval_ids = [srv.job_register(_storm_job(3))[0] for _ in range(20)]
+        assert wait_for(lambda: all(
+            (e := srv.state.eval_by_id(eid)) is not None
+            and e.Status == "complete" for eid in eval_ids), timeout=120)
+        assert srv.workers[0].quiesce(60)
+    finally:
+        tfailpoints.disarm_all()
+        srv.shutdown()
+    assert len(failed) == 1 and isinstance(failed[0].ready, Ready)
+    assert at_nack and all(n >= 1 for snap in at_nack for n in snap)
+
+
 def test_server_device_and_mesh():
     assert TServerConfig().device == "cuda"
     assert TServerConfig().host_placement is False
