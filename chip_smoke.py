@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases kernels,storm,served-identity,served,
                                     mesh,mesh-served-identity,mesh-served,
-                                    system,placer]
+                                    system,placer,agent]
                           [--package-root DIR]
 
 Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
@@ -147,6 +147,25 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            `scheduler_impl="cpu-reference"`; the device engine's mean
            bin-pack score is no lower than the cpu-reference's (within
            2e-3).
+  agent    the dev agent end to end, as `python -m nomad_tpu_torch.cli agent
+           -dev` starts it (server on the card, RPC endpoints, client
+           runtime, HTTP API on a free port): config 3's fleet (10,000
+           nodes, 64 classes, 16,384 rows) registered through the RPC
+           dispatch (`Node.Register`); the CLI run in process against the
+           agent's address: init, validate, plan, run, status, alloc-status
+           and stop of example.nomad, whose raw_exec /bin/sleep alloc must
+           run on the agent's own node through the port's client; a
+           600-job HTTP storm of config 3 (PUT /v1/jobs, evals polled
+           through GET /v1/evaluations): 30,000 placements within capacity,
+           none on the agent's node, K2, K3, K4a, K5 and K4b launched and no
+           plain version run; evals/s, placements/s, register round trip
+           p50 / p99 and the worker stage timers of
+           /v1/agent/debug/sched-stats, beside the same 600 jobs registered
+           in process on the same agent and the served phase's rates; then
+           `nomad plan` of one more job on the loaded fleet through the
+           kernels and inside `native.plain_versions()`, which must answer
+           identically (diff, annotations, FailedTGAllocs), and a plan with
+           its scratch table's build, upload and run timed.
 
 Last, every kernel's device-only time a call (torch.profiler's CUDA
 activity) beside its event time and its host time a call, at the shapes
@@ -1886,6 +1905,7 @@ def served_phase(torch, gpu: str, device="cuda"):
     cache_ms = ["%.3f" % (results[label]["stats"]["t_nodecache_ms"]
                           / results[label]["stats"]["windows"])
                 for label, _ in runs]
+    SERVED_RATES[:] = rates
     print(f"phase served: untraced storm rates {['%.1f' % r for r in rates]}"
           f" evals/s, median {rates[(len(rates) - 1) // 2]:.1f}; the "
           f"worker's per-window node cache (t_nodecache_ms / windows) over "
@@ -2348,6 +2368,359 @@ def placer_phase(torch, gpu: str, device="cuda"):
           "placer: device usage differs from the host mirror after sync")
     quality_gate(torch, gpu, device)
     return launches
+
+
+# ---------------------------------------------------------------- agent
+
+AGENT_JOBS = 600        # the HTTP storm: config 3's 600 jobs of Count 50
+AGENT_WARMUP = (3, 3, 64)   # HTTP warm-up storms before the timed one
+# Exit codes of the CLI lifecycle: `plan` exits 1 when the job would change
+# the cluster, as `nomad plan` does.
+CLI_CODES = (("init", 0), ("validate", 0), ("plan", 1), ("run", 0),
+             ("status", 0), ("alloc-status", 0), ("stop", 0))
+SERVED_RATES = []       # the served phase's untraced storm rates, if it ran
+NO_METADATA = {"fingerprint.env_aws.url": "http://127.0.0.1:1/",
+               "fingerprint.env_gce.url": "http://127.0.0.1:1/"}
+
+
+def _pctl(values, q):
+    return float(np.percentile(np.asarray(values) * 1e3, q))
+
+
+def _http_storm(api, count):
+    """Register `count` jobs through the HTTP API (PUT /v1/jobs, one at a
+    time) and poll GET /v1/evaluations until every eval is complete. Returns
+    the eval ids, each register's round trip and each eval's latency from
+    its register call to the poll that saw it complete, and the wall."""
+    t_submit, rtts = {}, []
+    t0 = time.monotonic()
+    for _ in range(count):
+        job = make_job()
+        t = time.monotonic()
+        eid, _ = api.jobs.register(job)
+        rtts.append(time.monotonic() - t)
+        t_submit[eid] = t
+    pending, lats = set(t_submit), []
+    deadline = time.monotonic() + 300
+    while pending and time.monotonic() < deadline:
+        evals, _ = api.evaluations.list()
+        now = time.monotonic()
+        done = {e["ID"] for e in evals
+                if e["ID"] in pending and e["Status"] == "complete"}
+        lats.extend(now - t_submit[eid] for eid in done)
+        pending -= done
+        if pending:
+            time.sleep(0.05)
+    wall = time.monotonic() - t0
+    check(not pending, f"agent: {len(pending)} of {count} evals never "
+          f"completed through HTTP")
+    return list(t_submit), rtts, lats, wall
+
+
+def _quiesce(srv, what):
+    for w in srv.workers:
+        check(w.quiesce(60), f"{what}: a worker never quiesced")
+
+
+def _placed(srv, eval_ids):
+    return [a for eid in eval_ids for a in srv.state.allocs_by_eval(eid)]
+
+
+def _cli_lifecycle(agent, api, addr, workdir):
+    """init, validate, plan, run, status, alloc-status and stop of
+    `example.nomad` (raw_exec /bin/sleep) through the CLI's own entry point
+    in this process; the alloc must reach `running` on the agent's node."""
+    import io
+
+    from nomad_tpu_torch.cli import main as cli_main
+
+    node_id = agent.client.node.ID
+    here = os.getcwd()
+    os.chdir(workdir)
+    codes, out = {}, io.StringIO()
+    try:
+        def cli(name, *argv, address=True):
+            with contextlib.redirect_stdout(out):
+                codes[name] = cli_main([name] + (["-address", addr]
+                                                 if address else [])
+                                       + list(argv))
+        cli("init", address=False)
+        cli("validate", "example.nomad", address=False)
+        cli("plan", "example.nomad")
+        cli("run", "example.nomad")
+        allocs, _ = api.jobs.allocations("example")
+        check(len(allocs) == 1, f"agent cli: {len(allocs)} allocs of "
+              f"example, want 1")
+        alloc_id = allocs[0]["ID"]
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            alloc, _ = api.allocations.info(alloc_id)
+            if alloc["ClientStatus"] == "running":
+                break
+            time.sleep(0.1)
+        cli("status")
+        cli("alloc-status", alloc_id)
+        cli("stop", "example")
+    finally:
+        os.chdir(here)
+    lines = out.getvalue().splitlines()
+    print(f"phase agent cli: exit codes {codes}; example's alloc "
+          f"{alloc_id[:8]} {alloc['ClientStatus']} on node "
+          f"{alloc['NodeID'][:8]} (the agent's node {node_id[:8]}); "
+          + " | ".join(ln.strip() for ln in lines
+                       if ln.startswith(("==>", "Job validation",
+                                         "- All tasks", "Example job",
+                                         "Client Status")))[:900],
+          flush=True)
+    check(codes == dict(CLI_CODES), f"agent cli: exit codes {codes}, want "
+          f"{dict(CLI_CODES)}")
+    check(alloc["ClientStatus"] == "running" and alloc["NodeID"] == node_id,
+          f"agent cli: example's alloc is {alloc['ClientStatus']} on "
+          f"{alloc['NodeID']}, want running on the agent's node {node_id}")
+
+
+def _plan_response(resp):
+    """A plan response as plain data, with what differs between any two
+    plans masked: the created evals (random ids, kept as their number),
+    and in a failed group's metric its host timer and the values of its
+    node scores (they carry tie-break jitter drawn afresh for every plan;
+    the scored nodes stay)."""
+    from nomad_tpu_torch.structs import to_dict
+
+    out = to_dict(resp)
+    out["CreatedEvals"] = len(out["CreatedEvals"] or [])
+    for metric in (out["FailedTGAllocs"] or {}).values():
+        metric["AllocationTime"] = 0
+        metric["Scores"] = sorted(metric["Scores"])
+    return out
+
+
+def _timed_plan(torch, api, job, device):
+    """One `nomad plan` over HTTP with the scratch Harness's steps timed on
+    the host: the request, its decode and the scratch store and table build,
+    the table's upload (a sync after it) and the scheduler's run (a sync
+    after it). The plan's one keyed placement (K2 -> K3 -> K4a) is kept
+    with its inputs, so its device-only time can be taken last in the
+    process. Returns the response, the times and the replay."""
+    from nomad_tpu_torch.scheduler import kernels, testing
+
+    marks, process = {}, testing.Harness.process
+    keyed, calls = kernels.place_batch_keyed, []
+
+    def timed_process(self, name, ev):
+        marks["built"] = time.perf_counter()
+        marks["rows"] = self.tindex.nt.n_rows
+        self.tindex.nt.device_arrays()
+        _sync(torch, device)
+        marks["uploaded"] = time.perf_counter()
+        process(self, name, ev)
+        _sync(torch, device)
+        marks["done"] = time.perf_counter()
+
+    def kept_keyed(*args, **kwargs):
+        calls.append((args, kwargs))
+        return keyed(*args, **kwargs)
+
+    testing.Harness.process = timed_process
+    kernels.place_batch_keyed = kept_keyed
+    try:
+        t0 = time.perf_counter()
+        resp, _ = api.jobs.plan(job)
+        wall = time.perf_counter() - t0
+    finally:
+        testing.Harness.process = process
+        kernels.place_batch_keyed = keyed
+    check(len(calls) == 1, f"agent plan: {len(calls)} keyed placements, "
+          f"want 1")
+    args, kwargs = calls[0]
+    times = dict(
+        wall_ms=round(wall * 1e3, 3),
+        build_ms=round((marks["built"] - t0) * 1e3, 3),
+        upload_ms=round((marks["uploaded"] - marks["built"]) * 1e3, 3),
+        schedule_ms=round((marks["done"] - marks["uploaded"]) * 1e3, 3),
+        rows=marks["rows"])
+    return resp, times, lambda: keyed(*args, **kwargs)
+
+
+def agent_phase(torch, gpu: str, device="cuda", n_nodes=None):
+    """The dev agent end to end: server, RPC endpoints, client runtime and
+    HTTP API in one process; config 3's fleet registered through the RPC
+    dispatch; the CLI lifecycle of example.nomad; a 600-job HTTP storm and
+    the same storm registered in process; `nomad plan` on the loaded fleet
+    through the kernels and through the plain versions. Returns the HTTP
+    storm's launches per kernel."""
+    import shutil
+    import tempfile
+
+    from nomad_tpu_torch import native
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api import Client
+    from nomad_tpu_torch.structs import to_dict
+
+    workdir = tempfile.mkdtemp(prefix="agent_phase_")
+    cfg = AgentConfig.dev()
+    cfg.http_port = 0
+    cfg.device = device
+    cfg.data_dir = os.path.join(workdir, "data")
+    # The client's cloud fingerprints ask a metadata service at a
+    # link-local address; point them at a closed port on this host.
+    cfg.options.update(NO_METADATA)
+    agent = Agent(cfg)
+    try:
+        agent.start()
+        srv = agent.server
+        # 10,000 nodes that never heartbeat: park their TTLs first.
+        srv.heartbeats.min_ttl = PARKED["min_heartbeat_ttl"]
+        srv.heartbeats.grace = PARKED["heartbeat_grace"]
+        addr = f"http://{cfg.bind_addr}:{agent.http.port}"
+        api = Client(address=addr)
+        nodes = build_nodes(n_nodes)
+        t0 = time.monotonic()
+        for node in nodes:
+            agent.rpc("Node.Register", {"Node": to_dict(node)})
+        srv.tindex.nt.device_arrays()
+        _sync(torch, device)
+        print(f"phase agent on {gpu}: {len(nodes)} nodes registered through "
+              f"the RPC dispatch in {time.monotonic() - t0:.1f} s; table rows "
+              f"{srv.tindex.nt.n_rows} on {srv.tindex.nt.device}; HTTP at "
+              f"{addr}", flush=True)
+        check(srv.tindex.nt.device.type == device,
+              f"agent: the server's table is on {srv.tindex.nt.device}")
+
+        _cli_lifecycle(agent, api, addr, workdir)
+
+        for count in AGENT_WARMUP[:2]:
+            _http_storm(api, count)
+        srv.tindex.nt.warm_device()
+        _http_storm(api, AGENT_WARMUP[2])
+        _quiesce(srv, "agent warm-up")
+
+        storms = {}
+
+        def storm(label):
+            for w in srv.workers:
+                w.reset_stats()
+            gc.collect()
+            native.reset_counts()
+            _sync(torch, device)
+            if label == "http":
+                eval_ids, rtts, lats, wall = _http_storm(api, AGENT_JOBS)
+                stats = api.agent.sched_stats()
+            else:
+                lats, rtts = [], []
+                t0 = time.monotonic()
+                eval_ids = _storm_runner(srv)(AGENT_JOBS, latencies=lats)
+                _sync(torch, device)
+                wall = time.monotonic() - t0
+                stats = None
+            _quiesce(srv, f"agent {label} storm")
+            storms[label] = dict(
+                eval_ids=eval_ids, rtts=rtts, lats=lats, wall=wall,
+                stats=stats, launches=dict(native.LAUNCHES),
+                plain_calls=dict(native.PLAIN_CALLS),
+                placed=_placed(srv, eval_ids))
+
+        storm("http")
+        usage = _usage_checks(torch, srv, "agent")
+
+        # `nomad plan` of one more config-3 job on the fleet the HTTP storm
+        # loaded, through the kernels (its scratch table's steps timed) and
+        # through the plain versions.
+        job = make_job()
+        plans, plan_launches = {}, {}
+        for plain in (False, True):
+            native.reset_counts()
+            t0 = time.perf_counter()
+            if plain:
+                with native.plain_versions():
+                    resp, _ = api.jobs.plan(job)
+            else:
+                resp, timed, replay = _timed_plan(torch, api, job, device)
+            plans[plain] = (_plan_response(resp), time.perf_counter() - t0)
+            plan_launches[plain] = (dict(native.LAUNCHES),
+                                    dict(native.PLAIN_CALLS))
+        same = plans[False][0] == plans[True][0]
+        failed = plans[False][0]["FailedTGAllocs"]
+        desired = plans[False][0]["Annotations"]["DesiredTGUpdates"]
+        print(f"phase agent plan on {gpu}: one job (Count {PER_EVAL}) on "
+              f"{len(nodes)} nodes and {len(srv.state.allocs())} allocs: "
+              f"kernel and plain responses "
+              f"{'identical' if same else 'DIFFERENT'} (diff, annotations "
+              f"{desired}, FailedTGAllocs {failed}); HTTP ms kernels/plain "
+              f"{plans[False][1] * 1e3:.1f}/{plans[True][1] * 1e3:.1f}; "
+              f"launches {plan_launches[False][0]}; the kernel plan's host "
+              f"steps {json.dumps(timed)}", flush=True)
+        if device == "cuda":
+            DEVICE_ONLY.append((
+                f"plan's keyed placement (K2 -> K3 -> K4a) at "
+                f"{timed['rows']} rows", time_ms(torch, replay, 50), replay,
+                50))
+        _quiesce(srv, "agent plan")
+        check(np.array_equal(usage, srv.tindex.nt.usage),
+              "agent: a plan changed the live table's usage")
+
+        storm("in-process")
+        _usage_checks(torch, srv, "agent after the in-process storm")
+        node_id = agent.client.node.ID
+        for label, st in storms.items():
+            n = AGENT_JOBS
+            placed = len(st["placed"])
+            line = (f"phase agent ({label} storm) on {gpu}: {n} evals, "
+                    f"{placed} placements in {st['wall']:.3f} s: "
+                    f"{n / st['wall']:.1f} evals/s, "
+                    f"{placed / st['wall']:.1f} placements/s; eval latency "
+                    f"p50 {_pctl(st['lats'], 50):.1f} ms, p99 "
+                    f"{_pctl(st['lats'], 99):.1f} ms")
+            if st["rtts"]:
+                line += (f"; register round trip p50 "
+                         f"{_pctl(st['rtts'], 50):.3f} ms, p99 "
+                         f"{_pctl(st['rtts'], 99):.3f} ms")
+            print(line + f"; launches {st['launches']}", flush=True)
+        totals = storms["http"]["stats"]["Totals"]
+        timers = {k: round(v / AGENT_JOBS, 4) for k, v in totals.items()
+                  if k.startswith("t_") and isinstance(v, (int, float))
+                  and v}
+        flows = {k: totals.get(k) for k in ("windows", "multi", "fast",
+                                            "slow", "fallback", "rebases")}
+        print(f"phase agent (http storm) on {gpu}: "
+              f"/v1/agent/debug/sched-stats over "
+              f"{len(storms['http']['stats']['Workers'])} workers: {flows}; "
+              f"stage ms per eval {json.dumps(timers)}", flush=True)
+        rates = {k: AGENT_JOBS / v["wall"] for k, v in storms.items()}
+        print(f"phase agent on {gpu}: evals/s over HTTP {rates['http']:.1f}, "
+              f"registered in process on the same agent afterwards "
+              f"{rates['in-process']:.1f} (ratio "
+              f"{rates['http'] / rates['in-process']:.3f}); the served "
+              f"phase's untraced storms (one worker, window {WINDOW}) "
+              + (f"{['%.1f' % r for r in SERVED_RATES]}" if SERVED_RATES
+                 else "not run"), flush=True)
+    finally:
+        agent.shutdown()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    for label, st in storms.items():
+        check(len(st["placed"]) == AGENT_JOBS * PER_EVAL,
+              f"agent {label}: {len(st['placed'])} placements, want "
+              f"{AGENT_JOBS * PER_EVAL}")
+        on_agent = sum(1 for a in st["placed"] if a.NodeID == node_id)
+        check(on_agent == 0, f"agent {label}: {on_agent} storm allocs on the "
+              f"agent's own node")
+        check(not any(st["plain_calls"].values()),
+              f"agent {label}: plain versions ran: {st['plain_calls']}")
+        for k in SERVED_KERNELS:
+            check(st["launches"][k] > 0,
+                  f"agent {label}: kernel {k} never launched")
+    check(same, "agent: `nomad plan` through the kernels differs from the "
+          "plain versions")
+    check(not failed and desired[job.TaskGroups[0].Name]["Place"]
+          == PER_EVAL, f"agent plan: {desired}, failed {failed}")
+    kern, plain = plan_launches[False], plan_launches[True]
+    check(all(kern[0][k] > 0 for k in STORM_KERNELS[:3])
+          and not any(kern[1].values()),
+          f"agent plan: kernel run launches {kern[0]}, plain calls {kern[1]}")
+    check(not any(plain[0].values()) and plain[1]["placement_chain"] > 0,
+          f"agent plan: plain run launches {plain[0]}, plain calls {plain[1]}")
+    return storms["http"]["launches"]
 
 
 # ---------------------------------------------------------------- mesh
@@ -3151,7 +3524,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="kernels,storm,served-identity,served,mesh,"
-                            "mesh-served-identity,mesh-served,system,placer",
+                            "mesh-served-identity,mesh-served,system,placer,"
+                            "agent",
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--package-root", default=None,
                     help="drive the nomad_tpu_torch package found in this "
@@ -3183,7 +3557,7 @@ def main() -> int:
 
     unknown = phases - {"kernels", "system", "placer", "storm",
                         "served-identity", "served", "mesh",
-                        "mesh-served-identity", "mesh-served"}
+                        "mesh-served-identity", "mesh-served", "agent"}
     check(not unknown, f"unknown phases {sorted(unknown)}")
     def run(name, fn, default=None):
         """Run one phase when it was asked for, and print its seconds."""
@@ -3224,6 +3598,12 @@ def main() -> int:
     placer_launches = run("placer", lambda: placer_phase(torch, gpu))
     if placer_launches:
         print(f"placer path launches: {placer_launches}", flush=True)
+    # The dev agent (HTTP, CLI, client runtime, `nomad plan`) after every
+    # earlier phase, so each of them runs as before.
+    agent_launches = run("agent", lambda: agent_phase(torch, gpu))
+    if agent_launches:
+        print(f"agent path launches (HTTP storm): {agent_launches}",
+              flush=True)
     device_only_phase(torch)
     rows = []
     for name in native.KERNELS:

@@ -12,8 +12,8 @@ Ported from nomad_tpu/server/server.py. The server's node table lives on
 (a power-of-two prefix; one card is a one-shard mesh, which takes the
 single-device path), and a caller may set a mesh of logical shards of one
 card on `tindex.nt` itself; host placement is off by default; the
-per-eval engine is called "device" (the reference's "tpu"). Job.Plan and
-the self-registration of the server as a service wait for the agent slice.
+per-eval engine is called "device" (the reference's "tpu"). Job.Plan
+runs the scheduler in a scratch Harness on `ServerConfig.device`.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from nomad_tpu_torch.structs import (
     Allocation,
     Evaluation,
     Job,
+    JobPlanResponse,
     Node,
     PeriodicLaunch,
     generate_uuid,
@@ -867,12 +868,95 @@ class Server:
         return ev.ID, index, index
 
     def job_plan(self, job: Job, want_diff: bool = True):
-        """Dry-run scheduling (reference: job_endpoint.go:422-526 Job.Plan).
-        Its structural diff and annotations (nomad_tpu/structs/diff.py,
-        scheduler/annotate.py) wait for the agent slice of the port, which
-        serves `nomad plan`."""
-        raise NotImplementedError(
-            "Job.Plan waits for the agent slice of the port")
+        """Dry-run scheduling: what would registering this job do?
+        (reference: job_endpoint.go:422-526 Job.Plan)
+
+        Runs the real scheduler against a scratch copy of current state with
+        the submitted job inserted, a Harness planner capturing the plan, and
+        returns the annotated structural diff plus per-TG failures. No Raft
+        writes happen. The scratch build is O(cluster) per call; a
+        copy-on-write store fork would let plan reuse the snapshot directly.
+
+        The scratch Harness's node table lives on this server's device, so
+        on `cuda` a plan runs the placement kernels over a freshly uploaded
+        table, and a CPU server's plan never touches the card.
+        """
+        from nomad_tpu_torch.scheduler.annotate import annotate
+        from nomad_tpu_torch.scheduler.testing import Harness
+        from nomad_tpu_torch.structs.diff import job_diff
+
+        job.init_fields()
+        self._default_region(job)
+        errs = job.validate()
+        if errs:
+            raise ValueError("; ".join(errs))
+
+        snap = self.state.snapshot()
+        old_job = snap.job_by_id(job.ID)
+        index = old_job.JobModifyIndex if old_job is not None else 0
+        updated_index = index + 1 if old_job is not None else 1
+
+        # Periodic parents are never evaluated by register — the dispatcher
+        # launches children. Report the diff + next launch only.
+        if job.is_periodic():
+            diff = None
+            if want_diff:
+                diff = job_diff(old_job, job, contextual=True)
+            next_launch = (job.Periodic.next(time.time())
+                           if job.Periodic.Enabled else 0.0)
+            return JobPlanResponse(Diff=diff, JobModifyIndex=index,
+                                   NextPeriodicLaunch=next_launch)
+
+        # Scratch world: current nodes/allocs/evals + the proposed job.
+        harness = Harness(device=self.config.device)
+        scratch = harness.state
+        # Copies only: store upserts stamp indexes/status on the objects they
+        # are handed, and live snapshot reads return the stored references.
+        for node in snap.nodes():
+            scratch.upsert_node(harness._next_index(), node.copy())
+        for other in snap.jobs():
+            if other.ID != job.ID:
+                scratch.upsert_job(harness._next_index(), other.copy())
+        allocs = [a.copy() for a in snap.allocs()]
+        if allocs:
+            scratch.upsert_allocs(harness._next_index(), allocs)
+        # The upsert stamps JobModifyIndex from the index passed; make the
+        # scratch indexes land at updated_index so the eval's
+        # JobModifyIndex matches the planned job's.
+        harness.next_index = max(harness.next_index, updated_index)
+        scratch.upsert_job(harness._next_index(), job.copy())
+
+        ev = Evaluation(
+            ID=generate_uuid(),
+            Priority=job.Priority,
+            Type=job.Type,
+            TriggeredBy=EvalTriggerJobRegister,
+            JobID=job.ID,
+            JobModifyIndex=updated_index,
+            Status=EvalStatusPending,
+            AnnotatePlan=True,
+        )
+        harness.process(ev.Type, ev)
+
+        if len(harness.plans) != 1:
+            raise RuntimeError(
+                f"scheduler resulted in {len(harness.plans)} plans, want 1")
+        annotations = harness.plans[0].Annotations
+
+        diff = None
+        if want_diff:
+            diff = job_diff(old_job, job, contextual=True)
+            annotate(diff, annotations)
+
+        updated_eval = harness.evals[0] if harness.evals else ev
+
+        return JobPlanResponse(
+            Diff=diff,
+            Annotations=annotations,
+            FailedTGAllocs=updated_eval.FailedTGAllocs,
+            JobModifyIndex=index,
+            CreatedEvals=list(harness.creates),
+        )
 
     def job_deregister(self, job_id: str) -> Tuple[str, int]:
         """(reference: job_endpoint.go:155-207)"""
@@ -1112,9 +1196,13 @@ class Server:
         their server list from any agent's HTTP API (the reference's analogue
         is server self-registration in Consul for client auto-discovery,
         command/agent/agent.go syncAgentServicesWithConsul)."""
-        raise NotImplementedError(
-            "server self-registration (nomad_tpu/services) waits for the "
-            "agent slice of the port")
+        from nomad_tpu_torch.services import build_server_service_regs
+
+        regs = build_server_service_regs(self.config.node_id or "dev",
+                                         rpc_addr, http_addr)
+        if not regs:
+            return 0
+        return self.service_sync(regs, [])
 
     def _invalidate_heartbeat(self, node_id: str) -> None:
         """(reference: heartbeat.go:84-107)"""

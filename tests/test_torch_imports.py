@@ -121,6 +121,66 @@ def test_modules_cover_the_system_slice():
             assert hasattr(mod, name), (mod.__name__, name)
 
 
+def test_modules_cover_the_agent_slice():
+    """The agent slice: the diff and annotations, services, RPC (all but
+    the cluster, which waits for the replicated server), jobspec, client
+    runtime and drivers, agent, API client and CLI (each imported with jax
+    and nomad_tpu blocked by the first test of this file)."""
+    names = set(port_modules())
+    for mod in ("structs.diff", "scheduler.annotate", "services",
+                "services.checks", "services.manager", "rpc", "rpc.wire",
+                "rpc.pool", "rpc.server", "rpc.transport", "rpc.tls",
+                "rpc.endpoints", "jobspec", "jobspec.hcl", "jobspec.parse",
+                "client", "client.client", "client.rpc",
+                "client.alloc_runner", "client.task_runner",
+                "client.allocdir", "client.env", "client.executor",
+                "client.fingerprint", "client.getter", "client.logs",
+                "client.restarts", "client.stats", "client.driver",
+                "client.driver.base", "client.driver.raw_exec",
+                "client.driver.exec_driver", "client.driver.java",
+                "client.driver.qemu", "client.driver.docker",
+                "client.driver.mock_driver", "agent", "agent.agent",
+                "agent.config", "agent.http", "api", "api.client", "cli",
+                "cli.commands", "cli.__main__"):
+        assert f"nomad_tpu_torch.{mod}" in names, mod
+    assert "nomad_tpu_torch.rpc.cluster" not in names
+    assert nomad_tpu_torch.__version__ == "0.1.0"
+
+
+def _string_constants(path):
+    """Every string constant of a source file but logger names (a logger
+    keeps the reference's name, "nomad_tpu.raft" say)."""
+    tree = ast.parse(open(path).read())
+    loggers = {id(node.args[0]) for node in ast.walk(tree)
+               if isinstance(node, ast.Call) and node.args
+               and getattr(node.func, "attr", None) == "getLogger"}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in loggers:
+            yield node.value
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+    if f.endswith(".py")))
+def test_no_source_names_a_reference_module(path):
+    """No string in the port names a module of the reference (a module
+    spawned as `python -m <name>`, imported by name, or patched by name
+    would reach the JAX package past the import blocker)."""
+    for text in _string_constants(path):
+        assert not text.startswith(("nomad_tpu.", "-m nomad_tpu.")), \
+            (path, text)
+        assert " -m nomad_tpu." not in text, (path, text)
+
+
+def test_the_executor_is_spawned_from_the_port():
+    from nomad_tpu_torch.client.driver import base
+
+    assert base.EXECUTOR_MODULE == "nomad_tpu_torch.client.executor"
+    src = open(os.path.join(PKG, "client", "driver", "base.py")).read()
+    assert '"-m", EXECUTOR_MODULE' in src
+
+
 def test_server_defaults_to_cuda_and_refuses_a_mesh():
     """"all" shards over the server's own devices (one CPU: one shard); a
     mesh over distinct devices is refused, never folded onto one."""
