@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases kernels,storm,served-identity,served,
                                     mesh,mesh-served-identity,mesh-served,
-                                    system,placer,agent]
+                                    system,placer,agent,cluster]
                           [--package-root DIR]
 
 Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
@@ -166,6 +166,36 @@ Builds the CUDA kernels of nomad_tpu_torch/csrc with nvcc (sm_90a), then:
            kernels and inside `native.plain_versions()`, which must answer
            identically (diff, annotations, FailedTGAllocs), and a plan with
            its scratch table's build, upload and run timed.
+  cluster  Nomad's replicated deployment (bench.py bench_failover_storm's
+           setup on the port): three `ClusterServer`s in this process,
+           formed by gossip (bootstrap-expect 3), raft over loopback TCP
+           (heartbeat 20 ms, elections 80-160 ms), each with its own raft
+           log store (`make_log_store`: the native library when built,
+           the Python store otherwise), QoS on (deadlines 10/30/120 s),
+           one scheduler each, heartbeat TTLs parked and its own node
+           table on the card; config 3's fleet (10,000 nodes, 64 classes,
+           16,384 rows a table) registered through the leader's
+           `Node.Register` from 8 client threads; a storm of 150 config-3
+           jobs (Count 50, priorities 80/20/50) through random live
+           servers (followers forward to the leader), the leader killed
+           with `shutdown()` after the 100th, drained under a deadline.
+           The leader places through its pipelined worker (K2, K3, K4a,
+           K5, then K4b), each follower through its routed per-eval
+           worker (K2, K3, K4a, one readback) on its own replica, and
+           every server's table refreshes (K4b) on the commits it
+           applies. Checks: every eval terminal, every job at exactly 50
+           live allocs, no duplicate alloc, no node oversubscribed
+           (`chaos.check_invariants` on the new leader's store); the
+           survivors' replica digests with no divergence and a verified
+           watermark on the follower; each survivor's device usage equal
+           to its host mirror; routed workers completed evals; K2-K5 and
+           K4b launched and no plain version ran; then one more job placed
+           on the new leader's snapshot and table through the kernels and
+           inside `native.plain_versions()`, identical. Prints the
+           election, register, storm and kill-to-leader seconds, evals/s
+           and placements/s through the kill, per-tier latency, evals per
+           server's workers, launches, snapshots per server and each
+           server's log store.
 
 Last, every kernel's device-only time a call (torch.profiler's CUDA
 activity) beside its event time and its host time a call, at the shapes
@@ -2575,6 +2605,7 @@ def agent_phase(torch, gpu: str, device="cuda", n_nodes=None):
         addr = f"http://{cfg.bind_addr}:{agent.http.port}"
         api = Client(address=addr)
         nodes = build_nodes(n_nodes)
+        elections = [0]     # registers retried on another leader
         t0 = time.monotonic()
         for node in nodes:
             agent.rpc("Node.Register", {"Node": to_dict(node)})
@@ -2721,6 +2752,524 @@ def agent_phase(torch, gpu: str, device="cuda", n_nodes=None):
     check(not any(plain[0].values()) and plain[1]["placement_chain"] > 0,
           f"agent plan: plain run launches {plain[0]}, plain calls {plain[1]}")
     return storms["http"]["launches"]
+
+
+# ------------------------------------------------------------- cluster
+
+CLUSTER_JOBS = 150          # the storm's jobs of config 3 (Count 50 each);
+#                             cut from 300, whose storm took 45-79 s of a
+#                             phase over its 90 s on an H100 80GB HBM3 at
+#                             700 W (the fleet's registers through raft
+#                             took 46-89 s of the rest; PERF.md §5)
+CLUSTER_KILL_AT = 100       # jobs registered before the leader is killed
+CLUSTER_TIERS = (80, 20, 50)    # bench_failover_storm's priorities
+CLUSTER_REGISTER_THREADS = 8      # client threads registering the fleet
+CLUSTER_RAFT = dict(heartbeat_interval=0.02, election_timeout_min=0.08,
+                    election_timeout_max=0.16, apply_timeout=5.0)
+CLUSTER_DEADLINES_S = (10.0, 30.0, 120.0)   # QoS deadlines per tier
+
+
+CLUSTER_RETRY_S = 60.0      # how long a client retries one RPC through
+#                             elections (three servers in one interpreter
+#                             re-elect under load: 20 ms heartbeats)
+
+
+def _cluster_rpc(live, method, args, delay=0.1):
+    """One RPC through a randomly chosen live server's endpoints (a
+    follower forwards to the leader), retried through elections as an
+    API client's retry loop does (bench.py bench_failover_storm's rpc,
+    with a deadline in place of its 80 attempts)."""
+    last, deadline = None, time.monotonic() + CLUSTER_RETRY_S
+    while time.monotonic() < deadline:
+        targets = [cs for cs in live if cs.endpoints is not None]
+        random.shuffle(targets)
+        for cs in targets:
+            try:
+                return cs.endpoints.handle(method, dict(args))
+            except Exception as e:  # an election or a dead link: retry
+                last = e
+        time.sleep(delay)
+    raise last if last is not None else RuntimeError("no live server")
+
+
+def _cluster_leader(live):
+    for cs in live:
+        srv = cs.server
+        if srv is not None and srv.is_leader() and srv._leader:
+            return cs
+    return None
+
+
+def _wait_leader(live, timeout=30.0):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        leader = _cluster_leader(live)
+        if leader is not None:
+            return leader, time.monotonic() - t0
+        time.sleep(0.005)
+    check(False, f"cluster: no leader within {timeout} s")
+
+
+class _PlanOnly:
+    """A Planner that records the plan and commits nothing: a placement on
+    a snapshot that leaves the store and the table as they are."""
+
+    def __init__(self, index):
+        self.index, self.plans = index, []
+
+    def submit_plan(self, plan):
+        from nomad_tpu_torch.structs import PlanResult
+
+        self.plans.append(plan)
+        return PlanResult(NodeUpdate=plan.NodeUpdate,
+                          NodeAllocation=plan.NodeAllocation,
+                          AllocIndex=self.index), None
+
+    def update_eval(self, ev):
+        pass
+
+    def create_eval(self, ev):
+        pass
+
+    def reblock_eval(self, ev):
+        pass
+
+
+class _WithJob:
+    """A state snapshot that also holds one unregistered job."""
+
+    def __init__(self, snap, job):
+        self._snap, self._job = snap, job
+
+    def job_by_id(self, job_id):
+        return self._job if job_id == self._job.ID else \
+            self._snap.job_by_id(job_id)
+
+    def __getattr__(self, name):
+        return getattr(self._snap, name)
+
+
+def _snapshot_placement(torch, srv, job, plain: bool):
+    """One placement of `job` on the server's live snapshot and table, its
+    plan recorded and not committed: the keyed placement's outputs (rows,
+    scores, feasible counts, usage after) and the plan's node per alloc
+    name, with a fixed tie-break seed."""
+    from nomad_tpu_torch import native
+    from nomad_tpu_torch.scheduler import GenericScheduler, kernels
+    from nomad_tpu_torch.structs import Evaluation
+    from nomad_tpu_torch.structs.structs import EvalTriggerJobRegister
+
+    snap = srv.state.snapshot()
+    planner = _PlanOnly(snap.latest_index() + 1)
+    keyed, outs = kernels.place_batch_keyed, []
+
+    def kept(*args, **kwargs):
+        out = keyed(*args, **kwargs)
+        outs.append(out)
+        return out
+
+    ev = Evaluation(ID=f"cluster-identity-{int(plain)}",
+                    Priority=job.Priority, Type=job.Type,
+                    TriggeredBy=EvalTriggerJobRegister, JobID=job.ID)
+    kernels.place_batch_keyed = kept
+    ctx = native.plain_versions() if plain else contextlib.nullcontext()
+    try:
+        with ctx:
+            GenericScheduler(_WithJob(snap, job), planner, srv.tindex,
+                             logging.getLogger("chip_smoke"),
+                             batch=False, rng=random.Random(7)).process(ev)
+            _sync(torch, srv.tindex.nt.device.type)
+    finally:
+        kernels.place_batch_keyed = keyed
+    placed = sorted((a.Name, a.NodeID) for plan in planner.plans
+                    for allocs in plan.NodeAllocation.values()
+                    for a in allocs)
+    return outs, placed
+
+
+def cluster_phase(torch, gpu: str, device="cuda", n_nodes=None,
+                  n_jobs=None):
+    """Nomad's replicated deployment on the card: three `ClusterServer`s in
+    this process (raft over loopback TCP, gossip bootstrap-expect 3, QoS
+    on, each on its own raft log store and its own node table on
+    `device`), config 3's fleet registered through `Node.Register`, a
+    storm of config-3 jobs registered through random live servers with
+    the leader killed after the 100th, then the checks. Returns the
+    storm's launches per kernel (all three servers: the counters are
+    process-wide)."""
+    import shutil
+    import tempfile
+
+    from nomad_tpu_torch import native
+    from nomad_tpu_torch.gossip import GossipConfig
+    from nomad_tpu_torch.qos import QoSConfig
+    from nomad_tpu_torch.raft import RaftConfig
+    from nomad_tpu_torch.raft.native_log import make_log_store
+    from nomad_tpu_torch.resilience import chaos
+    from nomad_tpu_torch.rpc.cluster import ClusterServer
+    from nomad_tpu_torch.server import ServerConfig
+    from nomad_tpu_torch.structs import to_dict
+    from nomad_tpu_torch.structs.structs import (EvalStatusCancelled,
+                                                 EvalStatusComplete,
+                                                 EvalStatusFailed)
+    from nomad_tpu_torch.telemetry import metrics
+
+    terminal = (EvalStatusComplete, EvalStatusFailed, EvalStatusCancelled)
+    tier_name = {80: "high", 20: "low", 50: "normal"}
+    n_jobs = CLUSTER_JOBS if n_jobs is None else n_jobs
+    kill_at = min(CLUSTER_KILL_AT, 2 * n_jobs // 3)
+    workdir = tempfile.mkdtemp(prefix="cluster_phase_")
+    stores, snapshots, acks, servers = {}, {}, {}, []
+
+    # The digest counters of every replica, over the whole phase.
+    digest_counts = {"folds": 0, "exchanged": 0, "diverged": 0}
+    incr = metrics.incr_counter
+
+    def counting_incr(key, *args, **kwargs):
+        key = tuple(key)
+        if key[:3] == ("nomad", "fsm", "digest") and key[3] in digest_counts:
+            digest_counts[key[3]] += 1
+        return incr(key, *args, **kwargs)
+
+    def boot(name, join=None):
+        cs = ClusterServer(ServerConfig(
+            node_id="", num_schedulers=1, bootstrap_expect=3,
+            scheduler_window=8, device=device,
+            qos=QoSConfig(enabled=True, deadlines_s=CLUSTER_DEADLINES_S),
+            **PARKED))
+        store = make_log_store(os.path.join(workdir, name))
+        stores[name] = type(store).__name__
+        snapshots[name] = 0
+        for method in ("store_snapshot", "store_snapshot_chunks"):
+            def persisted(*args, _fn=getattr(store, method), **kwargs):
+                out = _fn(*args, **kwargs)
+                snapshots[name] += 1
+                return out
+            setattr(store, method, persisted)
+        cs.connect([], log_store=store,
+                   raft_config=RaftConfig(**CLUSTER_RAFT))
+        cs.start()
+        acks[name] = [0]
+        for w in cs.server.remote_workers:
+            def acked(eval_id, token, _fn=w._send_ack, _n=acks[name]):
+                _n[0] += 1
+                return _fn(eval_id, token)
+            w._send_ack = acked
+        cs.enable_gossip(name, join=join,
+                         gossip_config=GossipConfig.fast())
+        cs.name = name
+        servers.append(cs)
+        return cs
+
+    def gaddr(cs):
+        ml = cs.membership.memberlist
+        return f"{ml.addr}:{ml.port}"
+
+    # Three servers in one interpreter share its collector: a full pass
+    # over the process's heap (the earlier phases' objects, then the
+    # fleet's three replicas) stopped every thread for up to 400 ms on
+    # the H100's host, past the 80-160 ms election timeout, and the
+    # followers re-elected through the fleet's registration (1,278
+    # registers retried). So the phase freezes what exists and runs with
+    # the cyclic collector off (reference counting still frees), and
+    # restores both at its end. Each server of a real deployment has its
+    # own process and heap.
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    gc_pauses = {}  # generation -> [count, total ms, max ms] over the phase
+    gc_t0 = [0.0]
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+            return
+        ms = (time.perf_counter() - gc_t0[0]) * 1e3
+        rec = gc_pauses.setdefault(info["generation"], [0, 0.0, 0.0])
+        rec[0] += 1
+        rec[1] += ms
+        rec[2] = max(rec[2], ms)
+
+    gc.callbacks.append(gc_timer)
+    metrics.incr_counter = counting_incr
+    try:
+        t0 = time.monotonic()
+        first = boot("c0")
+        boot("c1", join=[gaddr(first)])
+        boot("c2", join=[gaddr(first)])
+        live = list(servers)
+        addrs = sorted(cs.addr for cs in live)
+        deadline = time.monotonic() + 30
+        while True:     # one leader with all three servers as raft peers
+            leader, _ = _wait_leader(live)
+            if sorted(leader.server.raft.peers) == addrs:
+                break
+            check(time.monotonic() < deadline,
+                  "cluster: the raft configuration never held 3 servers")
+            time.sleep(0.005)
+        t_elect = time.monotonic() - t0
+        tables = {cs.name: cs.server.tindex.nt.device for cs in servers}
+        print(f"phase cluster on {gpu}: 3 servers formed by gossip "
+              f"(bootstrap-expect 3), leader {leader.name} elected "
+              f"{t_elect:.3f} s after the first boot; raft log stores "
+              f"{stores} under {workdir} (an fsync there "
+              f"{_fsync_ms(workdir):.3f} ms); node tables on {tables}",
+              flush=True)
+        check(all(d.type == device for d in tables.values()),
+              f"cluster: a server's table is off {device}: {tables}")
+
+        nodes = build_nodes(n_nodes)
+        elections = [0]     # registers retried on another leader
+        t0 = time.monotonic()
+
+        errors = []
+
+        def register(part):
+            # A client that knows the leader sends to it (a follower would
+            # forward every register over one more RPC hop), and through
+            # an election it finds the new one.
+            target = leader
+            for node in part:
+                args = {"Node": to_dict(node)}
+                deadline = time.monotonic() + CLUSTER_RETRY_S
+                while True:
+                    try:
+                        target.endpoints.handle("Node.Register", dict(args))
+                        break
+                    except Exception as e:  # the leader changed: find it
+                        if time.monotonic() > deadline:
+                            errors.append(e)
+                            return
+                        time.sleep(0.05)
+                        target, _ = _wait_leader(live)
+                        elections[0] += 1
+
+        threads = [threading.Thread(
+            target=register, name=f"cluster-register-{i}",
+            args=(nodes[i::CLUSTER_REGISTER_THREADS],))
+            for i in range(CLUSTER_REGISTER_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        t_register = time.monotonic() - t0
+        check(not errors, f"cluster: {len(errors)} register threads failed "
+              f"through {CLUSTER_RETRY_S} s of elections: {errors[:1]}")
+        check(_wait_all_nodes(live, len(nodes)),
+              "cluster: a replica is missing registered nodes")
+        for cs in live:
+            cs.server.tindex.nt.device_arrays()
+        _sync(torch, device)
+        print(f"phase cluster on {gpu}: {len(nodes)} nodes registered "
+              f"through the leader's Node.Register from "
+              f"{CLUSTER_REGISTER_THREADS} client threads in {t_register:.3f} s "
+              f"({len(nodes) / t_register:.1f} registers/s; "
+              f"{elections[0]} retried through a leader change; the "
+              f"collector's pauses {_gc_summary(gc_pauses)}); table rows "
+              f"{[cs.server.tindex.nt.n_rows for cs in live]}", flush=True)
+
+        # The storm: jobs through random live servers, the leader killed
+        # after the kill_at-th; every eval's register-to-terminal latency
+        # read off whichever server leads.
+        jobs, submit_t, tier_of, lat = [], {}, {}, {}
+        stop = threading.Event()
+
+        def watcher():
+            while True:
+                ldr = _cluster_leader(live)
+                if ldr is not None:
+                    now = time.monotonic()
+                    for eid in [e for e in list(tier_of) if e not in lat]:
+                        ev = ldr.server.state.eval_by_id(eid)
+                        if ev is not None and ev.Status in terminal:
+                            lat[eid] = now - submit_t[eid]
+                if stop.is_set():
+                    return
+                time.sleep(0.01)
+
+        native.reset_counts()
+        killed_stats, t_recover, t_submitted = None, None, None
+        wt = threading.Thread(target=watcher, name="cluster-watch",
+                              daemon=True)
+        wt.start()
+        t0 = time.monotonic()
+        for i in range(n_jobs):
+            if i == kill_at:
+                victim = _cluster_leader(live)
+                check(victim is not None, "cluster: no leader to kill")
+                killed_stats = (victim.name, _worker_stats(victim.server))
+                live.remove(victim)
+                tk = time.monotonic()
+                victim.shutdown()
+                _wait_leader(live)
+                t_recover = time.monotonic() - tk
+            job = make_job()
+            job.Priority = CLUSTER_TIERS[i % len(CLUSTER_TIERS)]
+            jobs.append(job)
+            resp = _cluster_rpc(live, "Job.Register", {"Job": to_dict(job)})
+            submit_t[resp["EvalID"]] = time.monotonic()
+            tier_of[resp["EvalID"]] = job.Priority
+            time.sleep(0.005)
+        t_submitted = time.monotonic() - t0
+        deadline = time.monotonic() + 60
+        while len(lat) < len(tier_of) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        wall = time.monotonic() - t0
+        stop.set()
+        wt.join(10)
+        check(len(lat) == len(tier_of), f"cluster: {len(tier_of) - len(lat)} "
+              f"of {len(tier_of)} evals not terminal within the deadline")
+        leader, _ = _wait_leader(live)
+        for w in leader.server.workers:
+            check(w.quiesce(60), "cluster: the leader's worker never "
+                  "quiesced")
+        _sync(torch, device)
+        launches, plain_calls = dict(native.LAUNCHES), \
+            dict(native.PLAIN_CALLS)
+
+        state = leader.server.state
+        eval_ids = list(tier_of)
+        placed = sum(1 for job in jobs for a in state.allocs_by_job(job.ID)
+                     if not a.terminal_status())
+        problems = chaos.check_invariants(state, jobs, PER_EVAL, eval_ids)
+        by_tier = {}
+        for eid, prio in tier_of.items():
+            by_tier.setdefault(tier_name[prio], []).append(lat[eid])
+        print(f"phase cluster on {gpu}: storm of {n_jobs} jobs (Count "
+              f"{PER_EVAL}, priorities {CLUSTER_TIERS}) through random live "
+              f"servers in {wall:.3f} s (the last register at "
+              f"{t_submitted:.3f} s): {n_jobs / wall:.1f} evals/s, "
+              f"{placed / wall:.1f} placements/s through the kill; leader "
+              f"{killed_stats[0]} killed after job {kill_at}, a new leader "
+              f"{leader.name} in {t_recover:.3f} s; eval latency by tier "
+              + "; ".join(f"{t} p50 {_pctl(v, 50):.1f} ms p99 "
+                          f"{_pctl(v, 99):.1f} ms (n={len(v)})"
+                          for t, v in sorted(by_tier.items()))
+              + f"; invariant violations {len(problems)}", flush=True)
+        for p in problems[:10]:
+            print(f"  cluster invariant: {p}", flush=True)
+
+        # Per-server work, from the stats of every pipelined worker each
+        # server ran in any term as leader.
+        done = dict([killed_stats] + [(cs.name, _worker_stats(cs.server))
+                                      for cs in live])
+        routed = {name: n[0] for name, n in acks.items()}
+        followers = [cs for cs in live if cs is not leader]
+        digests = {cs.name: cs.server.fsm.digest.stats() for cs in live}
+        print(f"phase cluster on {gpu}: the pipelined workers while "
+              f"leading {done}; evals acked by the routed per-eval "
+              f"workers {routed}; launches (all servers) {launches}; "
+              f"snapshots persisted {snapshots}; digests "
+              + "; ".join(f"{n}: folds {d['Folds']} exchanged "
+                          f"{d['Exchanged']} diverged {d['Diverged']} "
+                          f"verified to {d['VerifiedIndex']}"
+                          for n, d in digests.items())
+              + f"; digest counters over the phase {digest_counts}; the "
+              f"collector's pauses so far (generation: count, total ms, "
+              f"max ms) {_gc_summary(gc_pauses)}", flush=True)
+
+        for cs in live:
+            _usage_checks(torch, cs.server, f"cluster {cs.name}")
+
+        # One more job placed on the new leader's snapshot and table with
+        # every worker quiet, through the kernels and the plain versions.
+        check(leader.server.eval_broker.stats.TotalUnacked == 0
+              and leader.server.eval_broker.stats.TotalReady == 0,
+              "cluster: the broker is not quiet")
+        job = make_job()
+        usage0 = _usage_checks(torch, leader.server, "cluster identity")
+        native.reset_counts()
+        k_outs, k_placed = _snapshot_placement(torch, leader.server, job,
+                                               False)
+        ident_launches = dict(native.LAUNCHES)
+        p_outs, p_placed = _snapshot_placement(torch, leader.server, job,
+                                               True)
+        same = (len(k_outs) == len(p_outs) == 1 and k_placed == p_placed
+                and all(_bits_equal(torch, a, b)
+                        for a, b in zip(k_outs[0], p_outs[0])))
+        print(f"phase cluster identity on {gpu}: one job (Count "
+              f"{PER_EVAL}) on leader {leader.name}'s snapshot: "
+              f"{len(k_placed)} placements, kernels and plain versions "
+              f"{'identical' if same else 'DIFFERENT'} (rows, scores, "
+              f"feasible counts, usage after, node per alloc); launches "
+              f"{ident_launches}", flush=True)
+        check(np.array_equal(usage0, leader.server.tindex.nt.usage),
+              "cluster: the identity placement changed the live usage")
+    finally:
+        gc.callbacks.remove(gc_timer)
+        gc.enable()
+        gc.unfreeze()
+        metrics.incr_counter = incr
+        for cs in servers:
+            cs.shutdown()
+        _sync(torch, device)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    check(not problems, f"cluster: invariants violated: {problems[:5]}")
+    check(placed == n_jobs * PER_EVAL, f"cluster: {placed} live allocs, "
+          f"want {n_jobs * PER_EVAL}")
+    for name, d in digests.items():
+        check(d["Diverged"] == 0 and d["Synced"],
+              f"cluster {name}: digest {d}")
+    check(digest_counts["diverged"] == 0, f"cluster: digest counters "
+          f"{digest_counts}")
+    check(all(digests[cs.name]["VerifiedIndex"] > 0
+              and digests[cs.name]["Exchanged"] > 0 for cs in followers),
+          f"cluster: a follower verified no digest: {digests}")
+    check(sum(routed.values()) > 0,
+          f"cluster: no routed worker completed an eval: {routed}")
+    check(not any(plain_calls.values()),
+          f"cluster: plain versions ran in the storm: {plain_calls}")
+    for k in SERVED_KERNELS:
+        check(launches[k] > 0, f"cluster: kernel {k} never launched")
+    check(len(k_placed) == PER_EVAL, f"cluster identity: {len(k_placed)} "
+          f"placements, want {PER_EVAL}")
+    check(same, "cluster identity: kernels and plain versions differ")
+    check(all(ident_launches[k] > 0 for k in STORM_KERNELS[:3]),
+          f"cluster identity: launches {ident_launches}")
+    return launches
+
+
+def _gc_summary(pauses) -> dict:
+    return {g: [n, round(total, 1), round(top, 1)]
+            for g, (n, total, top) in sorted(pauses.items())}
+
+
+def _worker_stats(srv) -> dict:
+    """Counters summed over every pipelined worker the server ran, in this
+    and earlier terms as leader (a lost term retires its workers)."""
+    keys = ("windows", "fast", "slow", "fallback", "stale", "rebases")
+    out = dict.fromkeys(keys, 0)
+    for w in srv.workers + srv._retired_workers:
+        stats = getattr(w, "stats", {})
+        for k in keys:
+            out[k] += stats.get(k, 0)
+    return out
+
+
+def _fsync_ms(directory, n=64) -> float:
+    """Median ms of a 256-byte append and fsync in `directory`, the cost
+    the raft leader pays per command it appends."""
+    path = os.path.join(directory, "fsync-probe")
+    times = []
+    with open(path, "ab") as fh:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fh.write(b"x" * 256)
+            fh.flush()
+            os.fsync(fh.fileno())
+            times.append(time.perf_counter() - t0)
+    os.unlink(path)
+    return float(np.median(times) * 1e3)
+
+
+def _wait_all_nodes(live, n, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if all(len(cs.server.state.nodes()) == n for cs in live):
+            return True
+        time.sleep(0.05)
+    return False
 
 
 # ---------------------------------------------------------------- mesh
@@ -3525,7 +4074,7 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="kernels,storm,served-identity,served,mesh,"
                             "mesh-served-identity,mesh-served,system,placer,"
-                            "agent",
+                            "agent,cluster",
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--package-root", default=None,
                     help="drive the nomad_tpu_torch package found in this "
@@ -3557,7 +4106,8 @@ def main() -> int:
 
     unknown = phases - {"kernels", "system", "placer", "storm",
                         "served-identity", "served", "mesh",
-                        "mesh-served-identity", "mesh-served", "agent"}
+                        "mesh-served-identity", "mesh-served", "agent",
+                        "cluster"}
     check(not unknown, f"unknown phases {sorted(unknown)}")
     def run(name, fn, default=None):
         """Run one phase when it was asked for, and print its seconds."""
@@ -3604,6 +4154,12 @@ def main() -> int:
     if agent_launches:
         print(f"agent path launches (HTTP storm): {agent_launches}",
               flush=True)
+    # The replicated server (three servers, raft, gossip, a leader kill)
+    # after every earlier phase, so each of them runs as before.
+    cluster_launches = run("cluster", lambda: cluster_phase(torch, gpu))
+    if cluster_launches:
+        print(f"cluster path launches (the storm, all three servers): "
+              f"{cluster_launches}", flush=True)
     device_only_phase(torch)
     rows = []
     for name in native.KERNELS:

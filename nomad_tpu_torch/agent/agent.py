@@ -10,11 +10,11 @@ Ported from nomad_tpu/agent/agent.py. Beyond the imports:
   `server { device = ... }` or the CLI's `-device` asks for "cpu") is
   where the dev server's node table and placement kernels run. A dev agent
   on a machine without CUDA raises at start, as the port's server does.
-- A networked (cluster-mode) server needs `rpc/cluster.py`, the native
-  raft log and gossip, which belong to the replicated-server slice of the
-  port: `_setup_cluster_server` raises NotImplementedError until then.
-  Client-only agents (a `NetServerChannel` over `rpc.pool`) are as in
-  the reference.
+  A networked (cluster-mode) server passes it on too, so every server of
+  a cluster builds its node table on the device its agent names.
+- The networked server logs which raft log store it opened
+  (`NativeLogStore` when `native/bin/liblogstore.so` is built,
+  `FileLogStore` otherwise), and `Agent.log_store` holds it.
 """
 
 from __future__ import annotations
@@ -32,12 +32,6 @@ from nomad_tpu_torch.server import Server, ServerConfig
 from .http import HTTPServer
 
 logger = logging.getLogger("nomad.agent")
-
-CLUSTER_MODE = ("a networked (non-dev) server waits for the replicated-"
-                "server slice of the port (rpc/cluster.py, raft/native_log.py, "
-                "gossip); run `agent -dev`, or a client-only agent against "
-                "a server")
-
 
 @dataclass
 class AgentConfig:
@@ -208,6 +202,7 @@ class Agent:
         logging.getLogger().addHandler(self.log_ring)
         self.server: Optional[Server] = None
         self.cluster = None  # ClusterServer in networked mode
+        self.log_store = None  # the networked server's raft log store
         self.client: Optional[Client] = None
         self.http: Optional[HTTPServer] = None
         self.rpc_endpoints = None
@@ -314,11 +309,45 @@ class Agent:
         self.rpc_endpoints = Endpoints(self.server)
 
     def _setup_cluster_server(self) -> None:
-        """Networked server (reference: agent.go:356 setupServer ->
-        nomad.NewServer with setupRPC/setupRaft/setupSerf). It needs the
-        RPC cluster, the native raft log and gossip, which the port has
-        not yet."""
-        raise NotImplementedError(CLUSTER_MODE)
+        """Networked server: RPC+raft listener plus the gossip membership
+        plane (reference: agent.go:356 setupServer -> nomad.NewServer with
+        setupRPC/setupRaft/setupSerf, server.go:166-263)."""
+        from nomad_tpu_torch.raft.native_log import make_log_store
+        from nomad_tpu_torch.rpc.cluster import ClusterServer
+
+        sconf = ServerConfig(
+            region=self.config.region,
+            datacenter=self.config.datacenter,
+            num_schedulers=self.config.num_schedulers,
+            scheduler_window=self.config.scheduler_window,
+            pipelined_scheduling=self.config.pipelined_scheduling,
+            scheduler_mesh=self.config.scheduler_mesh,
+            event_buffer_size=self.config.event_buffer_size,
+            qos=_qos_from_config(self.config.qos),
+            federation=_federation_from_config(self.config.federation),
+            bootstrap_expect=self.config.bootstrap_expect,
+            device=self.config.device,
+        )
+        self.cluster = ClusterServer(sconf, bind_addr=self.config.bind_addr,
+                                     port=self.config.rpc_port,
+                                     tls=_agent_tls(self.config))
+        # Durable raft log + term/vote (reference: raft-boltdb store,
+        # server.go setupRaft) — a restarted server must not re-vote in a
+        # term it already voted in, nor re-bootstrap a formed cluster.
+        raft_dir = os.path.join(self.config.data_dir, "raft")
+        os.makedirs(raft_dir, exist_ok=True)
+        # Native C++ segment log when built (make -C native), Python
+        # FileLogStore otherwise — same on-disk format either way.
+        self.log_store = make_log_store(raft_dir)
+        logger.info("agent: raft log store %s at %s",
+                    type(self.log_store).__name__, raft_dir)
+        self.cluster.connect([], log_store=self.log_store)
+        self.cluster.start()
+        self.cluster.enable_gossip(self.config.node_name,
+                                   gossip_port=self.config.serf_port,
+                                   join=self.config.start_join or None)
+        self.server = self.cluster.server
+        self.rpc_endpoints = self.cluster.endpoints
 
     def _setup_client(self) -> None:
         """(reference: agent.go:428 setupClient)"""

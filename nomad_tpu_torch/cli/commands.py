@@ -6,9 +6,9 @@ server-members, agent-info, system gc).
 completion (reference: command/run.go + command/monitor.go).
 
 Ported from nomad_tpu/cli/commands.py. Beyond the imports: `agent`
-takes `-device cuda|cpu` (where a dev server's node table and placement
-kernels run; "cuda" unless asked), and there is no `lint`, which drives
-the reference's static-analysis framework (not part of the port).
+takes `-device cuda|cpu` (where a server's node table and placement
+kernels run; "cuda" unless asked), and `lint` scans this package's tree
+by default.
 """
 
 from __future__ import annotations
@@ -223,6 +223,23 @@ def main(argv) -> int:
     _add_meta(p)
     p.add_argument("-servers", action="store_true",
                    help="print the known server addresses")
+
+    p = sub.add_parser("lint",
+                       help="static concurrency/telemetry lint "
+                            "(the `go vet` analogue)")
+    p.add_argument("paths", nargs="*",
+                   help="files/dirs to lint (default: the installed "
+                        "nomad_tpu_torch tree)")
+    p.add_argument("-json", action="store_true", dest="as_json",
+                   help="machine-readable JSON output")
+    p.add_argument("-checker", action="append", default=None,
+                   help="run only this checker id (repeatable)")
+    p.add_argument("-show-suppressed", action="store_true",
+                   help="include suppressed findings in the output")
+    p.add_argument("-suppressions", action="store_true",
+                   help="audit mode: list every active "
+                        "`# lint: allow(...)` with its checker and "
+                        "reason instead of running the checkers")
 
     args = parser.parse_args(argv)
     if args.command is None:
@@ -1079,4 +1096,79 @@ def cmd_services(args) -> int:
         addr = f"{r['Address']}:{r['Port']}" if r.get("Port") else r["Address"]
         print(f"{r['ServiceName']:<24} {r['Status']:<10} {addr:<22} "
               f"{r['NodeID'][:8]:<10} {r.get('TaskName') or '-'}")
+    return 0
+
+def cmd_lint(args) -> int:
+    """Run the static analysis pass (reference intent: the `go vet` /
+    race-detector discipline the Go codebase gets for free). Exit 0 on a
+    clean tree, 1 when any unsuppressed finding survives."""
+    from nomad_tpu_torch.analysis import all_checkers, run_checks
+
+    if args.suppressions:
+        return _lint_suppressions(args)
+    try:
+        findings = run_checks(paths=args.paths or None,
+                              checker_ids=args.checker,
+                              include_suppressed=args.show_suppressed)
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        print("known checkers: "
+              + ", ".join(c.id for c in all_checkers()), file=sys.stderr)
+        return 2
+    live = [f for f in findings if not f.suppressed]
+    if args.as_json:
+        print(json.dumps({"findings": [f.to_dict() for f in findings],
+                          "total": len(live)}, indent=2))
+    else:
+        import os as _os
+
+        for f in findings:
+            print(f.render(relative_to=_os.getcwd()))
+        print(f"{len(live)} finding(s)"
+              + (f" ({len(findings) - len(live)} suppressed)"
+                 if len(findings) != len(live) else ""))
+    return 1 if live else 0
+
+
+def _lint_suppressions(args) -> int:
+    """`nomad-tpu lint -suppressions`: the purity-boundary audit. Every
+    active `# lint: allow(<checker>, <reason>)` in the tree, with its
+    location and reason — the reviewable ledger of intentional
+    exceptions. Always exits 0: suppressions are declarations, not
+    findings."""
+    import os as _os
+
+    from nomad_tpu_torch.analysis.findings import parse_suppression_details
+    from nomad_tpu_torch.analysis.framework import PKG_ROOT, iter_py_files
+
+    files: list = []
+    for p in (args.paths or [PKG_ROOT]):
+        p = _os.path.abspath(p)
+        if _os.path.isdir(p):
+            files.extend(iter_py_files(p))
+        else:
+            files.append(p)
+
+    rows = []
+    for path in files:
+        try:
+            with open(path, encoding="utf-8") as f:
+                source = f.read()
+        except OSError:
+            continue
+        for lineno, checker, reason in parse_suppression_details(source):
+            if args.checker and checker not in args.checker:
+                continue
+            rows.append({"File": _os.path.relpath(path, _os.getcwd()),
+                         "Line": lineno, "Checker": checker,
+                         "Reason": reason})
+    rows.sort(key=lambda r: (r["File"], r["Line"]))
+    if args.as_json:
+        print(json.dumps({"suppressions": rows, "total": len(rows)},
+                         indent=2))
+    else:
+        for r in rows:
+            print(f"{r['File']}:{r['Line']}: "
+                  f"allow({r['Checker']}) — {r['Reason']}")
+        print(f"{len(rows)} suppression(s)")
     return 0

@@ -16,8 +16,16 @@ snapshots always come from the LOCAL raft replica — followers replicate the
 FSM, and `_wait_for_index` is exactly the reference's raft-sync barrier
 (worker.go:214-244).
 
-Copied from nomad_tpu/server/worker.py; only the imports and the
-engine's name ("device", as the port's new_scheduler calls it) differ.
+Copied from nomad_tpu/server/worker.py; only the imports, the engine's
+name ("device", as the port's new_scheduler calls it) and one repair
+differ: after a partial commit, the refresh waits for the local replica to
+reach the partial plan's own AllocIndex as well as the applier's
+RefreshIndex (which is the index of the snapshot the plan was checked
+against, before the plan). A follower's routed worker that stopped at
+RefreshIndex re-planned without seeing the allocations that had just
+landed and placed them again; the reference does, at config 3's width
+(a job of Count 50 ending with 77-96 live allocations after a storm with a
+leader kill on a three-server cluster).
 """
 
 from __future__ import annotations
@@ -541,7 +549,9 @@ class Worker:
         # plan through raft replication (reference: worker.go:330-340).
         state = None
         if result is not None and result.RefreshIndex > 0:
-            self._wait_for_index(result.RefreshIndex)
+            # The partial commit's own allocations land at AllocIndex,
+            # past RefreshIndex: the retry must see them.
+            self._wait_for_index(max(result.RefreshIndex, result.AllocIndex))
             state = self.raft.fsm.state.snapshot()
             # The retry replans from a DIRECT fresh snapshot: its plans
             # are born now, not at the original source handout.
@@ -608,8 +618,8 @@ class Worker:
                                     committed=len(results))
         finally:
             metrics.measure_since(("nomad", "worker", "submit_plan"), start)
-        refresh = max((r.RefreshIndex for r in results if r is not None),
-                      default=0)
+        refresh = max((max(r.RefreshIndex, r.AllocIndex) for r in results
+                       if r is not None and r.RefreshIndex > 0), default=0)
         if partial:
             logger.warning(
                 "worker: plan sweep committed %d/%d chunks before failing;"

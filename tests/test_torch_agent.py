@@ -25,6 +25,7 @@ import urllib.request
 
 import pytest
 import torch
+from helpers import wait_for
 
 from nomad_tpu.agent import Agent as RefAgent
 from nomad_tpu.agent import AgentConfig as RefAgentConfig
@@ -34,6 +35,8 @@ from nomad_tpu_torch.agent import Agent, AgentConfig
 from nomad_tpu_torch.agent.config import config_from_dict, load_config_file
 from nomad_tpu_torch.client.driver import base as port_driver_base
 from nomad_tpu_torch.jobspec import parse_job
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.structs import to_dict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The client's cloud fingerprints ask a metadata service at a link-local
@@ -314,7 +317,6 @@ def test_raw_exec_runs_under_the_ports_executor(agents, monkeypatch):
                         lambda: None)
     monkeypatch.setattr(port_driver_base.subprocess, "Popen",
                         recording_popen)
-    from nomad_tpu_torch.structs import to_dict
 
     code, out, _, _ = http(port, "PUT", "/v1/jobs",
                            {"Job": to_dict(parse_job(RAW_JOB))})
@@ -356,10 +358,41 @@ def test_dev_agent_without_cuda_raises(tmp_path):
 
 
 def test_networked_server_waits_for_its_slice(tmp_path):
-    config = AgentConfig(server_enabled=True, http_port=0,
-                         data_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="replicated-server"):
-        Agent(config).start()
+    """Its slice is in: a networked CPU agent forms a one-server cluster
+    (raft on its own log store, gossip) and serves a job through it."""
+    config = AgentConfig(server_enabled=True, http_port=0, rpc_port=0,
+                         serf_port=0, data_dir=str(tmp_path), device="cpu",
+                         node_name="n1", num_schedulers=1)
+    agent = Agent(config)
+    agent.start()
+    try:
+        assert agent.cluster is not None and agent.log_store is not None
+        assert agent.server.tindex.nt.device.type == "cpu"
+        assert wait_for(lambda: agent.server.is_leader()
+                        and agent.server._leader)
+        assert [m["Name"] for m in agent.members()] == ["n1.global"]
+        node = mock.node()
+        agent.rpc("Node.Register", {"Node": to_dict(node)})
+        job = mock.job()
+        job.TaskGroups[0].Count = 2
+        job.TaskGroups[0].Tasks[0].Resources.Networks = []
+        job.TaskGroups[0].Tasks[0].Services = []
+        eval_id = agent.rpc("Job.Register", {"Job": to_dict(job)})["EvalID"]
+        assert wait_for(lambda: (ev := agent.server.state.eval_by_id(
+            eval_id)) is not None and ev.Status == "complete")
+        assert len(agent.server.state.allocs_by_job(job.ID)) == 2
+    finally:
+        agent.shutdown()
+
+
+def test_networked_agent_without_cuda_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    agent = Agent(AgentConfig(server_enabled=True, http_port=0, rpc_port=0,
+                              serf_port=0, data_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        agent.start()
+    assert agent.server is None and agent.cluster is None
 
 
 def _cli_agent(tmp_path, *flags):

@@ -7,11 +7,12 @@ and numbers masked, the first line and every `Key = value` line's key."""
 
 import contextlib
 import io
+import os
 import re
 import time
 
 import pytest
-from test_torch_agent import NO_METADATA
+from test_torch_agent import NO_METADATA, ROOT
 
 from nomad_tpu.agent import Agent as RefAgent
 from nomad_tpu.agent import AgentConfig as RefAgentConfig
@@ -113,9 +114,14 @@ def test_main_is_the_commands_entry():
     assert port_main is port_commands_main
 
 
-def test_lint_is_not_a_port_command():
-    with pytest.raises(SystemExit):
-        port_main(["lint"])
+def test_lint_is_not_a_port_command(capsys):
+    """`lint` is now a port command: it exits 0 on the port's own tree and
+    nonzero on the shared fixture of seeded violations."""
+    assert port_main(["lint"]) == 0
+    assert capsys.readouterr().out.strip().endswith("0 finding(s)")
+    fixture = os.path.join(ROOT, "tests", "fixtures", "lint_violations.py")
+    assert port_main(["lint", fixture]) == 1
+    assert "[apply_pure]" in capsys.readouterr().out
 
 
 def test_no_command_prints_help(sides, monkeypatch):

@@ -122,10 +122,9 @@ def test_modules_cover_the_system_slice():
 
 
 def test_modules_cover_the_agent_slice():
-    """The agent slice: the diff and annotations, services, RPC (all but
-    the cluster, which waits for the replicated server), jobspec, client
-    runtime and drivers, agent, API client and CLI (each imported with jax
-    and nomad_tpu blocked by the first test of this file)."""
+    """The agent slice: the diff and annotations, services, RPC, jobspec,
+    client runtime and drivers, agent, API client and CLI (each imported
+    with jax and nomad_tpu blocked by the first test of this file)."""
     names = set(port_modules())
     for mod in ("structs.diff", "scheduler.annotate", "services",
                 "services.checks", "services.manager", "rpc", "rpc.wire",
@@ -143,8 +142,39 @@ def test_modules_cover_the_agent_slice():
                 "agent.config", "agent.http", "api", "api.client", "cli",
                 "cli.commands", "cli.__main__"):
         assert f"nomad_tpu_torch.{mod}" in names, mod
-    assert "nomad_tpu_torch.rpc.cluster" not in names
+    assert "nomad_tpu_torch.rpc.cluster" in names
     assert nomad_tpu_torch.__version__ == "0.1.0"
+
+
+def test_modules_cover_the_cluster_slice():
+    """The replicated server (gossip, membership, the RPC cluster, the
+    native raft log, chaos) and the lint framework (each imported with jax
+    and nomad_tpu blocked by the first test of this file)."""
+    names = set(port_modules())
+    for mod in ("gossip", "gossip.memberlist", "server.membership",
+                "rpc.cluster", "raft.native_log", "resilience.chaos",
+                "analysis.findings", "analysis.framework",
+                "analysis.callgraph", "analysis.checkers",
+                "analysis.debug_locks"):
+        assert f"nomad_tpu_torch.{mod}" in names, mod
+    from nomad_tpu_torch import analysis
+    from nomad_tpu_torch.rpc.cluster import ClusterServer
+    from nomad_tpu_torch.server.membership import ServerMembership
+
+    assert set(analysis.__all__) >= {"all_checkers", "run_checks",
+                                     "guarded_by", "Finding"}
+    assert callable(ClusterServer.enable_gossip) and ServerMembership
+
+
+def test_every_reference_file_has_a_counterpart():
+    """Walk the reference by file name, without importing it: every file
+    of nomad_tpu/ has a file of the same path under nomad_tpu_torch/."""
+    ref = os.path.join(ROOT, "nomad_tpu")
+    missing = [os.path.relpath(os.path.join(d, f), ref)
+               for d, _, fs in os.walk(ref) for f in fs
+               if f.endswith(".py") and not os.path.exists(os.path.join(
+                   PKG, os.path.relpath(os.path.join(d, f), ref)))]
+    assert not missing, missing
 
 
 def _string_constants(path):
